@@ -1,0 +1,266 @@
+"""Layer stacks: the dense decoder path and the paged-KV helpers.
+
+The parameter tree is the reference's: ``embed``, ``final_norm`` and
+``groups/sub_j/{ln1, attn/{wq,wk,wv,wo}, ln2, mlp/{w1,w2,w3}}`` with every
+group leaf stacked on a leading layer axis and weights stored
+``(d_in, d_out)``.  A Python loop over the stacked layer axis replaces the
+reference's ``lax.scan``.  This slice ports the dense family (smollm,
+h2o-danube, command-r, starcoder2); the MoE, SSM/hybrid and
+encoder-decoder branches come with later slices.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch import tree
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.attention import (attention_block, attn_init,
+                                          init_kv_cache)
+from repro_torch.models.layers import (ModelContext, activation_fn,
+                                       apply_norm, dense_init, embed_init,
+                                       norm_init)
+
+Params = Dict[str, Any]
+
+
+def arch_group(cfg: ModelConfig) -> Tuple[Tuple[str, ...], int]:
+    """(group kinds, n_groups)."""
+    if cfg.is_hybrid:
+        k = cfg.hybrid_attn_every
+        assert cfg.num_layers % k == 0
+        return ("ssm",) * k + ("shared",), cfg.num_layers // k
+    if cfg.is_ssm:
+        return ("ssm",), cfg.num_layers
+    if cfg.is_moe:
+        if cfg.moe_every > 1:
+            assert cfg.num_layers % cfg.moe_every == 0
+            return ("dense",) * (cfg.moe_every - 1) + ("moe",), \
+                cfg.num_layers // cfg.moe_every
+        return ("moe",), cfg.num_layers
+    return ("dense",), cfg.num_layers
+
+
+def _require_dense(cfg: ModelConfig) -> None:
+    group, _ = arch_group(cfg)
+    if group != ("dense",) or cfg.is_encoder_decoder \
+            or cfg.frontend != "none":
+        raise NotImplementedError(
+            f"{cfg.name} ({cfg.family}): only the dense decoder family is "
+            "ported so far")
+
+
+# ---------------------------------------------------------------------------
+def mlp_init(gen, cfg: ModelConfig, dtype, device, stack: int) -> dict:
+    D, F = cfg.d_model, cfg.d_ff
+    p = {"w1": dense_init(gen, D, F, dtype, device, stack=stack),
+         "w2": dense_init(gen, F, D, dtype, device, stack=stack)}
+    if cfg.act == "silu":                 # gated (SwiGLU)
+        p["w3"] = dense_init(gen, D, F, dtype, device, stack=stack)
+    return p
+
+
+def mlp_block(params: dict, ctx: ModelContext, x: torch.Tensor
+              ) -> torch.Tensor:
+    h = activation_fn(ctx.cfg.act)(x @ params["w1"])
+    if "w3" in params:
+        h = h * (x @ params["w3"])
+    return h @ params["w2"]
+
+
+def run_sublayer(kind: str, params: dict, ctx: ModelContext,
+                 x: torch.Tensor, positions: torch.Tensor,
+                 cache: Optional[dict] = None,
+                 cache_index: Optional[int] = None,
+                 paged: Optional[dict] = None
+                 ) -> Tuple[torch.Tensor, Optional[dict]]:
+    """One dense sub-layer; returns ``(x_out, cache)``."""
+    if kind != "dense":
+        raise NotImplementedError(f"sub-layer kind {kind!r} is not ported")
+    cfg = ctx.cfg
+    h = apply_norm(cfg, params["ln1"], x)
+    a, cache = attention_block(params["attn"], ctx, h, positions,
+                               cache=cache, cache_index=cache_index,
+                               paged=paged)
+    if cfg.parallel_block:
+        return x + a + mlp_block(params["mlp"], ctx, h), cache  # cohere
+    x = x + a
+    h = apply_norm(cfg, params["ln2"], x)
+    return x + mlp_block(params["mlp"], ctx, h), cache
+
+
+# ---------------------------------------------------------------------------
+def init_params(gen: torch.Generator, cfg: ModelConfig, dtype,
+                device) -> Params:
+    """Random parameters with the reference's shapes and init scales."""
+    _require_dense(cfg)
+    L, D = cfg.num_layers, cfg.d_model
+
+    def stacked_norm():
+        return tree.map(lambda t: t.expand(L, -1).clone(),
+                        norm_init(cfg, D, device))
+
+    sub = {"ln1": stacked_norm(),
+           "attn": attn_init(gen, cfg, dtype, device, stack=L),
+           "mlp": mlp_init(gen, cfg, dtype, device, stack=L)}
+    if not cfg.parallel_block:
+        sub["ln2"] = stacked_norm()
+    p: Params = {"embed": embed_init(gen, cfg.padded_vocab, D, dtype, device),
+                 "final_norm": norm_init(cfg, D, device),
+                 "groups": {"sub_0": sub}}
+    if not cfg.tie_embeddings:
+        p["unembed"] = embed_init(gen, cfg.padded_vocab, D, dtype, device)
+    return p
+
+
+def embed_tokens(params: Params, ctx: ModelContext, tokens: torch.Tensor
+                 ) -> torch.Tensor:
+    return params["embed"][tokens]
+
+
+def unembed(params: Params, ctx: ModelContext, h: torch.Tensor
+            ) -> torch.Tensor:
+    table = params["embed"] if ctx.cfg.tie_embeddings else params["unembed"]
+    return h @ table.T
+
+
+def forward_serve(params: Params, ctx: ModelContext, tokens: torch.Tensor,
+                  positions: torch.Tensor, caches: Params, cache_index: int,
+                  paged: Optional[dict] = None) -> Tuple[torch.Tensor, Params]:
+    """Prefill (S > 1) / decode (S == 1) against stacked caches.
+
+    ``caches``: ``{"sub_j": {leaf: (n_groups, ...)}}``; layer ``l`` works
+    on the views ``leaf[l]`` and writes them in place.  With ``paged`` the
+    leaves are the page pool (see ``attention_block``).  Returns the final
+    hidden state and ``caches``."""
+    cfg = ctx.cfg
+    group, n_groups = arch_group(cfg)
+    x = embed_tokens(params, ctx, tokens)
+    for layer in range(n_groups):
+        for j, kind in enumerate(group):
+            p = tree.map(lambda t: t[layer], params["groups"][f"sub_{j}"])
+            c = caches.get(f"sub_{j}")
+            c = {k: v[layer] for k, v in c.items()} if c is not None else None
+            x, _ = run_sublayer(kind, p, ctx, x, positions, cache=c,
+                                cache_index=cache_index, paged=paged)
+    return apply_norm(cfg, params["final_norm"], x), caches
+
+
+# ---------------------------------------------------------------------------
+# caches
+def init_caches(cfg: ModelConfig, batch: int, seq: int, dtype, device
+                ) -> Params:
+    """Stacked (n_groups, B, S, K, hd) k/v caches matching forward_serve."""
+    _require_dense(cfg)
+    _, n_groups = arch_group(cfg)
+    one = init_kv_cache(cfg, batch, seq, dtype, device)
+    return {"sub_0": {k: v[None].repeat(n_groups, *([1] * v.ndim))
+                      for k, v in one.items()}}
+
+
+def slot_cache(caches: Params, slot: int) -> Params:
+    """A copy of one batch slot of the stacked caches (batch dim kept)."""
+    return tree.map(lambda c: c[:, slot:slot + 1].clone(), caches)
+
+
+def merge_slot_cache(caches: Params, one_cache: Params, slot: int) -> None:
+    """Write a single-slot cache back into batch position ``slot``."""
+    tree.map(lambda c, n: c[:, slot:slot + 1].copy_(n), caches, one_cache)
+
+
+# ---------------------------------------------------------------------------
+# paged KV: the contiguous per-slot sequence axis becomes a pool of
+# fixed-size pages — the paper's unit of pool placement applied to serving.
+PAGED_KEYS = ("k", "v")
+
+
+def split_paged(caches: Params) -> Tuple[Params, Params]:
+    """Split a stacked cache tree into (paged kv leaves, slot-shaped rest)."""
+    paged = {g: {k: v for k, v in sub.items() if k in PAGED_KEYS}
+             for g, sub in caches.items()}
+    rest = {g: {k: v for k, v in sub.items() if k not in PAGED_KEYS}
+            for g, sub in caches.items()}
+    return paged, rest
+
+
+def paged_pool(cfg: ModelConfig, num_pages: int, page_size: int, dtype,
+               device) -> Params:
+    """A zeroed page pool: each kv leaf is (n_groups, num_pages + 1, page,
+    K, hd) — ``num_pages`` real frames plus ONE trailing scratch frame (id
+    ``num_pages``) that absorbs writes routed away by the slot mask."""
+    _require_dense(cfg)
+    _, n_groups = arch_group(cfg)
+    shape = (n_groups, num_pages + 1, page_size, cfg.num_kv_heads,
+             cfg.resolved_head_dim)
+    return {"sub_0": {k: torch.zeros(shape, dtype=dtype, device=device)
+                      for k in PAGED_KEYS}}
+
+
+def gather_pages(pool: Params, page_map: torch.Tensor) -> Params:
+    """Materialise the contiguous (G, B, pp*page, K, hd) decode view (a
+    copy) from the page pool; unowned positions read the scratch frame."""
+    B, pp = page_map.shape
+    flat = page_map.reshape(-1).long()
+
+    def one(c):
+        g = c[:, flat]                             # (G, B*pp, page, K, hd)
+        G, _, page, K, hd = g.shape
+        return g.reshape(G, B, pp * page, K, hd)
+
+    return tree.map(one, pool)
+
+
+def scatter_pages(pool: Params, caches: Params, page_map: torch.Tensor
+                  ) -> None:
+    """Write a (G, B, pp*page, K, hd) view's pages into the pool at
+    ``page_map`` (in place; non-writable positions route to scratch)."""
+    paged, _ = split_paged(caches)
+    B, pp = page_map.shape
+    flat = page_map.reshape(-1).long()
+
+    def one(p, c):
+        G, B_, S, K, hd = c.shape
+        p[:, flat] = c.reshape(G, B_ * pp, S // pp, K, hd).to(p.dtype)
+
+    tree.map(one, pool, paged)
+
+
+def scatter_one_page(pool: Params, caches: Params, target: torch.Tensor,
+                     row_start: int, page_size: int) -> None:
+    """Write back only the page a decode step touched: ``target`` is its
+    (B,) pool ids (scratch for slots outside the decode group)."""
+    paged, _ = split_paged(caches)
+    tgt = target.long()
+
+    def one(p, c):
+        p[:, tgt] = c[:, :, row_start:row_start + page_size].to(p.dtype)
+
+    tree.map(one, pool, paged)
+
+
+def slot_pages(one_cache: Params, page_size: int, num_pages: int
+               ) -> Tuple[List[Params], Params]:
+    """Chop a single-slot cache into page-shaped (G, page, K, hd) chunks,
+    returning ``(pages, rest)`` with the slot-shaped leaves in ``rest``."""
+    if page_size < 1 or num_pages < 1:
+        raise ValueError(f"bad page chunking: {num_pages}x{page_size}")
+    paged, rest = split_paged(one_cache)
+    leaves = tree.leaves(paged)
+    if leaves and num_pages * page_size > leaves[0].shape[2]:
+        raise ValueError(f"{num_pages} pages of {page_size} rows exceed the "
+                         f"slot's {leaves[0].shape[2]} cache rows")
+    pages = [tree.map(lambda c: c[:, 0, p * page_size:(p + 1) * page_size]
+                      .clone(), paged) for p in range(num_pages)]
+    return pages, rest
+
+
+def page_slice(pool: Params, pid: int) -> Params:
+    """A copy of one page (all groups) of the pool — the spill unit.  A
+    copy, so a later in-place write to the frame cannot reach a payload."""
+    return tree.map(lambda c: c[:, pid].clone(), pool)
+
+
+def page_insert(pool: Params, page: Params, pid: int) -> None:
+    """Write a fetched page into pool position ``pid`` (in place)."""
+    tree.map(lambda c, n: c[:, pid].copy_(n), pool, page)

@@ -26,6 +26,11 @@ except ImportError:                     # property tests importorskip anyway
     pass
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skips where there is none")
+
+
 def run_multidev(script: str, devices: int = 8, timeout: int = 600):
     """Run tests/multidev/<script> in a child python with N host devices."""
     env = dict(os.environ)

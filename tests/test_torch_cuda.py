@@ -1,0 +1,139 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here needs a CUDA device and skips without one (the kernels have
+no CPU mode).  The file imports no JAX, so it runs on a GPU host that has
+only PyTorch:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+"""
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import ARCHS
+from repro_torch.kernels import offload_pack, ops, ref
+from repro_torch.kernels.paged_attention import paged_decode_attention
+from repro_torch.models.model import Model
+from repro_torch.serve.engine import Engine, Request
+from repro_torch.serve.quota import TenantQuota
+from repro_torch.serve.scheduler import FairScheduler
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    return torch.device("cuda")
+
+
+def _paged_inputs(dev, dtype, B=8, H=9, K=3, hd=64, page=16, pp=8, C=6,
+                  seed=0):
+    """Pools of B*pp+1 frames (last: scratch), a permuted page map with one
+    scratch entry, and C mapped frames moved to an int8 side pool."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    P = B * pp + 1
+    q = torch.randn((B, 1, H, hd), generator=g)
+    kp = torch.randn((P, page, K, hd), generator=g)
+    vp = torch.randn((P, page, K, hd), generator=g)
+    pm = torch.randperm(P - 1, generator=g)[:B * pp].reshape(B, pp)
+    pm = pm.to(torch.int32)
+    pm[0, -1] = P - 1
+    side = {"kq_pool": [], "vq_pool": [], "k_scale": [], "v_scale": []}
+    for ci, fr in enumerate(pm.reshape(-1)[:C].tolist()):
+        for pool, qn, sn in ((kp, "kq_pool", "k_scale"),
+                             (vp, "vq_pool", "v_scale")):
+            qq, sc = ref.int8_pack_ref(pool[fr].reshape(page * K, hd),
+                                       page * K)
+            side[qn].append(qq.reshape(page, K, hd))
+            side[sn].append(sc)
+        pm[pm == fr] = P + ci
+    side = {k: torch.stack(v).to(dev) for k, v in side.items()}
+    args = [t.to(dev, dtype) for t in (q, kp, vp)] + [pm.to(dev)]
+    return args, side
+
+
+def _bf16_ulps(x, n):
+    """``n`` bf16 ulps at the largest magnitude in ``x``."""
+    return n * 2.0 ** (math.floor(math.log2(x.abs().max().item())) - 7)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (40, 30.0)])
+def test_paged_decode_matches_plain(dev, dtype, window, softcap):
+    """Kernel == plain version with and without side-pool frames, across
+    fills: f32 to 2e-5, bf16 to two bf16 ulps of each fill's largest output
+    (the two sum in different orders, then round once to bf16)."""
+    args, side = _paged_inputs(dev, dtype)
+    for idx in (0, 15, 16, 70, 127):
+        for extra in ({}, side):
+            before = paged_decode_attention.launches
+            got = paged_decode_attention(*args, idx, window=window,
+                                         softcap=softcap, **extra)
+            assert paged_decode_attention.launches == before + 1
+            want = ref.paged_decode_attention_ref(
+                *args, idx, window=window, softcap=softcap, **extra)
+            tol = 2e-5 if dtype == torch.float32 else _bf16_ulps(want, 2)
+            torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                                       atol=tol)
+    got = paged_decode_attention(*args, -1, **side)
+    assert torch.isfinite(got.float()).all()
+
+
+def test_paged_decode_rejects_what_it_cannot_run(dev):
+    args, _ = _paged_inputs(dev, torch.bfloat16)
+    with pytest.raises(TypeError):          # mixed dtypes: no fallback
+        paged_decode_attention(args[0].float(), *args[1:], 5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_codec_bit_exact(dev, dtype):
+    g = torch.Generator(device="cpu").manual_seed(3)
+    x = (torch.randn((1440, 64), generator=g) * 3.0).to(dev, dtype)
+    for br in (1440, 160):
+        q, s = offload_pack.int8_pack(x, block_rows=br)
+        qr, sr = ref.int8_pack_ref(x, br)
+        assert torch.equal(q, qr) and torch.equal(s, sr)
+        for out in (torch.float32, torch.bfloat16):
+            y = offload_pack.int8_unpack(q, s, block_rows=br, dtype=out)
+            assert torch.equal(y, ref.int8_unpack_ref(q, s, br, out))
+    with pytest.raises(TypeError):          # float16 out: no fallback
+        offload_pack.int8_unpack(q, s, block_rows=160, dtype=torch.float16)
+
+
+def test_engine_kernels_match_plain_under_eviction(dev):
+    """The reduced model on the card, overcommitted pool, int8 codec through
+    its kernels: the kernel decode streams what the plain decode does, and
+    every kernel ran."""
+    cfg = ARCHS["smollm-135m"].reduced(dtype="float32")
+    model = Model(cfg, device=dev)
+    params = model.init(0)
+    rng = np.random.default_rng(5)
+    reqs = [(i, rng.integers(0, 512, size=(10,)).astype(np.int32), 10)
+            for i in range(4)]
+
+    def streams(impl):
+        ops.set_paged_impl(impl)
+        try:
+            eng = Engine(model, params, batch=2, max_len=32, page_size=4,
+                         pages=10, spill="host", decode_kernel=True,
+                         quota=TenantQuota(codec="int8"),
+                         scheduler=FairScheduler(quantum=3))
+            for uid, prompt, n in reqs:
+                eng.submit(Request(uid=uid, prompt=prompt, max_new_tokens=n))
+            done = sorted(eng.run(), key=lambda r: r.uid)
+        finally:
+            ops.set_paged_impl("cuda")
+        return [r.out_tokens for r in done], eng.traffic_report()
+
+    want, _ = streams("torch")
+    counts = {f: f.launches for f in (paged_decode_attention,
+                                      offload_pack.int8_pack,
+                                      offload_pack.int8_unpack)}
+    got, report = streams("cuda")
+    assert got == want
+    assert report["decode_io"]["compressed_adopts"] > 0
+    assert all(f.launches > n for f, n in counts.items())
