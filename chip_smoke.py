@@ -11,7 +11,7 @@ Phases (each failure exits non-zero; nothing is caught and carried on):
               card at the main path's shapes and times kernel, plain
               version, the least time the card could take (bound) and, for
               the paged decode, one PyTorch library call as a yardstick.
-4. main     — serves full-width smollm-135m (bf16, random weights from a
+4. serve    — serves full-width smollm-135m (bf16, random weights from a
               seed) through ``repro_torch.launch.serve``: paged KV, in-place
               kernel decode, int8 spill codec through its kernels, an
               overcommitted pool with host spill, so pages are evicted,
@@ -22,8 +22,21 @@ Phases (each failure exits non-zero; nothing is caught and carried on):
               adoptions included, must agree.  Then the path runs once
               more with the launch counts set to 0, and checks every
               request finished and every kernel launched.
+5. train    — trains full-width smollm-135m (bf16, random weights from a
+              seed) for 20 steps of 8 x 1024 tokens through
+              ``repro_torch.launch.train``, every layer's input stashed to
+              pinned host memory through the fp8 codec's kernels and the
+              layer recomputed in backward, training attention through the
+              flash kernel.  Checks finite, falling losses, the tier's
+              stash / fetch bytes and each kernel's launches a step; then
+              profiles two more steps; then runs 3 steps twice from the
+              same weights and batches, the flash forward on its plain
+              version and on the kernel, and compares every loss and every
+              step-1 gradient leaf; then 3 steps with the stash in pooled
+              HBM through the blocksparse codec.
 
-The line before the last is a JSON object with one entry per kernel; the
+The line before the last is a JSON object with one entry per kernel (its
+launches summed over the counted runs of phases 4 and 5, and per run); the
 last line is ``{"ok": true, "device": {...}}``.
 """
 import json
@@ -38,7 +51,7 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_BF16_FLOPS = 989e12          # H100 SXM dense bf16 tensor cores
-PEAK_INT8_OPS = 1979e12           # H100 SXM dense int8
+PEAK_F32_FLOPS = 67e12            # H100 SXM float32 outside tensor cores
 
 # main path: full-width smollm-135m, 16 requests of 128 prompt + 64 new
 # tokens over 8 decode slots of 256 rows, a 64-page pool (96 pages' worth
@@ -57,6 +70,32 @@ MAIN_ARGS = ["--arch", "smollm", "--device", "cuda", "--seed", "0",
 # pool with K and V scales swapped reads 0.60 and 0.087.
 LOGIT_ATOL = 0.15
 LOGIT_MEAN_ATOL = 0.02
+
+# training main path: full-width smollm-135m (30 layers), batch 8 x 1024
+# tokens, 20 steps, every layer input stashed to pinned host memory
+# through the fp8 codec's kernels; then 3 steps with the stash in pooled
+# HBM through the blocksparse codec.  lr 3e-4: at the CLI's default 3e-3
+# the full-depth loss ends higher than it starts on the card, so that run
+# could not show a falling loss.  At 4 of the 30 layers, from one set of
+# weights at this batch, the reference's and the port's 3e-3 curves climb
+# and fall back together (tests/torch_train_curves.py); the reference was
+# not run at full depth
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 30, 8, 1024, 20
+TRAIN_ARGS = ["--arch", "smollm", "--device", "cuda", "--seed", "0",
+              "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+              "--steps", str(TRAIN_STEPS), "--lr", "3e-4",
+              "--policy", "host", "--compress", "fp8", "--log-every", "1"]
+BLOCKSPARSE_ARGS = ["--arch", "smollm", "--device", "cuda", "--seed", "0",
+                    "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+                    "--steps", "3", "--lr", "3e-4", "--policy", "mcdla",
+                    "--compress", "blocksparse", "--log-every", "1"]
+# 3 training steps, flash kernel against its plain version from the same
+# weights and batches, bf16 through 30 layers.  On an H100 (700 W) the
+# correct kernel read 1.7e-4 on the losses and 0.052 on the worst step-1
+# gradient leaf (max |d| over the leaf's max |g|); kv head h % K read
+# 0.018 / 1.84 and the causal mask shifted by one 0.0063 / 12.6
+TRAIN_LOSS_ATOL = 1e-3
+TRAIN_GRAD_RTOL = 0.15
 
 
 def fail(msg: str) -> None:
@@ -227,53 +266,183 @@ def check_paged(dev, results):
         bound_ms=b_ms, bound_by=b_by, library_ms=lib, eager_ms=host)
 
 
-def check_codec(dev, results):
+def codec_case(dev, dtype, R, C, seed):
+    """(R, C) values spread over magnitudes, with, in the first row, the
+    block's absmax (448: the fp8 scale comes out 1.0 exactly), its
+    negative, fp8 rounding ties (1.0625, -3.375), e4m3 subnormals and
+    their ties (2^-9; 1.5, -2.5 and -0.5 x 2^-9) and zeros; the lower
+    half of the rows is scaled into the subnormal range."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((R, C), generator=g, device=dev) * 60
+    x[R // 2:] *= 1e-3                      # small values: subnormal range
+    special = torch.tensor([448.0, -448.0, 1.0625, -3.375, 2.0 ** -9,
+                            1.5 * 2.0 ** -9, -2.5 * 2.0 ** -9,
+                            -(2.0 ** -10), 0.0, 447.9], device=dev)
+    x[0, :special.numel()] = special
+    return x.clamp(-448.0, 448.0).to(dtype)
+
+
+def check_codec(dev, results, others):
+    """fp8, int8 and blocksparse packs and the shared unpack (int8 and fp8
+    payloads), bit-exact against their plain versions: at the training
+    shape as one row block (a whole stashed layer input), at the serving
+    page-leaf shape as 1, 9 and 90 row blocks, and at 4 value spreads.
+    Times go to ``results`` at each kernel's main-path shape and to
+    ``others`` at its other shape."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.offload_pack import int8_pack, int8_unpack
-    g = torch.Generator(device=dev).manual_seed(3)
-    # one page leaf at full width: 30 layers x 16 rows x 3 kv heads, hd 64
-    R, C = 30 * 16 * 3, 64
-    for dtype, spread in ((d, sp) for d in (torch.float32, torch.bfloat16)
-                          for sp in (0.01, 3.0, 7.0, 1e4)):
-        x = (torch.randn((R, C), generator=g, device=dev) * spread).to(dtype)
-        for br in (R, R // 9):
-            q, s = int8_pack(x, block_rows=br)
-            qr, sr = ref.int8_pack_ref(x, br)
-            if not (torch.equal(q, qr) and torch.equal(s, sr)):
-                fail(f"int8_pack {dtype} block_rows {br}: not bit-exact")
-            for out in (torch.float32, torch.bfloat16):
-                y = int8_unpack(q, s, block_rows=br, dtype=out)
-                if not torch.equal(y, ref.int8_unpack_ref(q, s, br, out)):
-                    fail(f"int8_unpack {dtype}->{out}: not bit-exact")
-    print("  int8_pack / int8_unpack: bit-exact (f32 and bf16 at 4 value "
-          "spreads, 1 and 9 row blocks)", flush=True)
-    x = (torch.randn((R, C), generator=g, device=dev) * 3).to(torch.bfloat16)
-    q, s = int8_pack(x, block_rows=R)
-    n = R * C
+    from repro_torch.kernels import offload_pack as kp
+    packs = {"fp8_pack": (kp.fp8_pack, ref.fp8_pack_ref),
+             "int8_pack": (kp.int8_pack, ref.int8_pack_ref),
+             "blocksparse_pack": (kp.blocksparse_pack,
+                                  ref.blocksparse_pack_ref)}
+    train_rc = (8 * 1024, 576)       # one stashed layer input, full width
+    leaf_rc = (30 * 16 * 3, 64)      # one spilled page leaf, full width
+    n_cases = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        cases = [(codec_case(dev, dtype, *train_rc, seed=4), (train_rc[0],))]
+        g = torch.Generator(device=dev).manual_seed(3)
+        for spread in (0.01, 3.0, 7.0, 1e4):
+            x = (torch.randn(leaf_rc, generator=g, device=dev) * spread)
+            cases.append((x.to(dtype), (leaf_rc[0], leaf_rc[0] // 9,
+                                        leaf_rc[0] // 90)))
+        cases.append((torch.zeros(leaf_rc, device=dev, dtype=dtype),
+                      (leaf_rc[0],)))
+        for x, brs in cases:
+            for br in brs:
+                for name, (kern, plain) in packs.items():
+                    q, s = kern(x, block_rows=br)
+                    qr, sr = plain(x, br)
+                    if not (torch.equal(q.view(torch.uint8),
+                                        qr.view(torch.uint8))
+                            and torch.equal(s, sr)):
+                        bad = (q.view(torch.uint8) != qr.view(torch.uint8))
+                        fail(f"{name} {dtype} {tuple(x.shape)} block_rows "
+                             f"{br}: not bit-exact ({int(bad.sum())} "
+                             f"payload bytes, {int((s != sr).sum())} scales "
+                             "differ)")
+                    for out in (torch.float32, torch.bfloat16):
+                        y = kp.fp8_unpack(q, s, block_rows=br, dtype=out)
+                        if not torch.equal(y, ref.fp8_unpack_ref(q, s, br,
+                                                                 out)):
+                            fail(f"unpack of {name} {dtype}->{out} block_rows "
+                                 f"{br}: not bit-exact")
+                    n_cases += 1
+    torch.cuda.synchronize()
+    print(f"  fp8_pack / int8_pack / blocksparse_pack and the shared unpack: "
+          f"bit-exact over {n_cases} (tensor, row block, codec) cases "
+          "(f32 and bf16; 8192 x 576 as one row block with fp8 ties and "
+          "subnormals; 1440 x 64 as 1, 9 and 90 row blocks at 4 spreads; "
+          "all zeros)", flush=True)
 
-    def pack():
-        return int8_pack(x, block_rows=R)
+    # times: each pack at its main path's shape (int8: the serving page
+    # leaf; fp8 and blocksparse: the training stash), the unpack at the
+    # training stash (fp8 payload), plus the other shape of each for the
+    # log
+    def timed(fn, plain, nbytes, ops, replaces, key, main):
+        b_ms, b_by = bound_ms(nbytes, ops, PEAK_F32_FLOPS)
+        if main:
+            key = key.split("@")[0]
+        (results if main else others)[key] = dict(
+            route="cuda",
+            source="src/repro_torch/kernels/csrc/offload_pack.cu",
+            replaces=replaces, max_abs_err=0.0, ms=device_ms(fn),
+            plain_ms=device_ms(plain), bound_ms=b_ms, bound_by=b_by,
+            library_ms=None, eager_ms=eager_ms(fn))
 
-    def unpack():
-        return int8_unpack(q, s, block_rows=R)
+    xt = codec_case(dev, torch.bfloat16, *train_rc, seed=5)
+    xl = (torch.randn(leaf_rc, device=dev) * 3).to(torch.bfloat16)
+    sites = {"fp8_pack": "src/repro/kernels/offload_pack.py:63",
+             "int8_pack": "src/repro/kernels/offload_pack.py:110",
+             "blocksparse_pack": "src/repro/kernels/offload_pack.py:143"}
+    for name, (kern, plain) in packs.items():
+        for x, tag in ((xt, "train"), (xl, "leaf")):
+            n, R = x.numel(), x.shape[0]
+            # x read once, one byte an element and a scale written (the
+            # kernel reads x twice: absmax, then quantise)
+            timed(lambda: kern(x, block_rows=R), lambda: plain(x, R),
+                  n * 2 + n + 4, 3.0 * n, sites[name], f"{name}@{tag}",
+                  (tag == "leaf") == (name == "int8_pack"))
+    for x, tag in ((xt, "train"), (xl, "leaf")):
+        n, R = x.numel(), x.shape[0]
+        pack = kp.fp8_pack if tag == "train" else kp.int8_pack
+        q, s = pack(x, block_rows=R)
+        timed(lambda: kp.fp8_unpack(q, s, block_rows=R),
+              lambda: ref.fp8_unpack_ref(q, s, R, torch.bfloat16),
+              n + 4 + 2 * n, 1.0 * n, "src/repro/kernels/offload_pack.py:86",
+              f"fp8_unpack@{tag}", tag == "train")
 
-    b_ms, b_by = bound_ms(n * 2 + n + 4, 3.0 * n, PEAK_BF16_FLOPS)
-    results["int8_pack"] = dict(
-        route="cuda", source="src/repro_torch/kernels/csrc/offload_pack.cu",
-        replaces="src/repro/kernels/offload_pack.py:110", max_abs_err=0.0,
-        ms=device_ms(pack),
-        plain_ms=device_ms(lambda: ref.int8_pack_ref(x, R)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        eager_ms=eager_ms(pack))
-    b_ms, b_by = bound_ms(n + 4 + n * 2, 1.0 * n, PEAK_INT8_OPS)
-    results["int8_unpack"] = dict(
-        route="cuda", source="src/repro_torch/kernels/csrc/offload_pack.cu",
-        replaces="src/repro/kernels/offload_pack.py:86", max_abs_err=0.0,
-        ms=device_ms(unpack),
-        plain_ms=device_ms(lambda: ref.int8_unpack_ref(q, s, R,
-                                                       torch.bfloat16)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        eager_ms=eager_ms(unpack))
+
+def flash_bytes_ops(q, k, causal, window):
+    """Bytes the forward must move (q, k, v, out once) and its QK / PV
+    operations over the visible (causal / window) pairs only."""
+    B, H, S, d = q.shape
+    T = k.shape[2]
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    qp = torch.arange(S)[:, None]
+    kp = torch.arange(T)[None, :]
+    vis = torch.ones((S, T), dtype=torch.bool)
+    if causal:
+        vis &= qp >= kp
+        if window > 0:
+            vis &= (qp - kp) < window
+    return nbytes, 4.0 * d * B * H * int(vis.sum())
+
+
+def check_flash(dev, results):
+    """The flash forward against its plain twin: at the training shape
+    (B 8, H 9, K 3, S = T = 1024, d 64, causal) in f32 (2e-5) and bf16 (2
+    bf16 ulps of each case's largest |out|), plus window 256 and a ragged
+    S = T = 1000; timed at the training shape in bf16 beside SDPA."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    g = torch.Generator(device=dev).manual_seed(6)
+    max_err = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        err, share = 0.0, 0.0
+        for S, window in ((1024, 0), (1024, 256), (1000, 0)):
+            q = torch.randn((8, 9, S, 64), generator=g, device=dev)
+            k = torch.randn((8, 3, S, 64), generator=g, device=dev)
+            v = torch.randn((8, 3, S, 64), generator=g, device=dev)
+            q, k, v = (t.to(dtype) for t in (q, k, v))
+            got = flash_attention_fwd(q, k, v, causal=True, window=window)
+            torch.cuda.synchronize()
+            want = ref.flash_attention_ref(q, k, v, causal=True,
+                                           window=window)
+            if not torch.isfinite(got.float()).all():
+                fail(f"flash forward not finite (S {S}, window {window})")
+            tol = 2e-5 if dtype == torch.float32 else bf16_ulps(want, 2)
+            e = (got.float() - want.float()).abs().max().item()
+            if e > tol:
+                fail(f"flash_attention_fwd {dtype} S {S} window {window}: "
+                     f"max abs err {e} > {tol}")
+            err, share = max(err, e), max(share, e / tol)
+        max_err[dtype] = err
+        limit = "2e-5" if dtype == torch.float32 else "2 bf16 ulps of |out|"
+        print(f"  flash_attention_fwd {str(dtype)[6:]}: max abs err "
+              f"{err:.3g}, at most {share:.2f} of the limit ({limit}) "
+              "over causal, window 256 and ragged S = 1000", flush=True)
+    q = torch.randn((8, 9, 1024, 64), generator=g, device=dev)
+    k = torch.randn((8, 3, 1024, 64), generator=g, device=dev)
+    v = torch.randn((8, 3, 1024, 64), generator=g, device=dev)
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+
+    def kernel():
+        return flash_attention_fwd(q, k, v, causal=True)
+
+    def library():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True)
+
+    nbytes, ops = flash_bytes_ops(q, k, True, 0)
+    b_ms, b_by = bound_ms(nbytes, ops, PEAK_BF16_FLOPS)
+    results["flash_attention_fwd"] = dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:109",
+        max_abs_err=max_err[torch.bfloat16], ms=device_ms(kernel, iters=20),
+        plain_ms=device_ms(lambda: ref.flash_attention_ref(q, k, v),
+                           iters=5),
+        bound_ms=b_ms, bound_by=b_by, library_ms=device_ms(library, iters=20),
+        eager_ms=eager_ms(kernel, iters=20))
 
 
 # ---------------------------------------------------------------------------
@@ -351,67 +520,36 @@ def check_main_path_logits() -> None:
         fail("main path logits disagree with the plain version")
 
 
-def main() -> None:
-    if not torch.cuda.is_available():
-        fail("torch.cuda.is_available() is False: this script needs a GPU")
-    sys.path.insert(0, os.path.join(REPO, "src"))
-    try:
-        from repro_torch.kernels import build
-        from repro_torch.kernels.offload_pack import int8_pack, int8_unpack
-        from repro_torch.kernels.paged_attention import paged_decode_attention
-        from repro_torch.launch import serve
-    except ImportError as e:
-        fail(f"cannot import the port from {REPO}/src: {e}")
-    dev = torch.device("cuda")
-    kind = torch.cuda.get_device_name(0)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+# ---------------------------------------------------------------------------
+def kernel_counters():
+    """Every ported kernel's wrapper (each counts its own launches)."""
+    from repro_torch.kernels import offload_pack as kp
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.paged_attention import paged_decode_attention
+    return {"paged_decode_attention": paged_decode_attention,
+            "int8_pack": kp.int8_pack, "fp8_unpack": kp.fp8_unpack,
+            "fp8_pack": kp.fp8_pack, "blocksparse_pack": kp.blocksparse_pack,
+            "flash_attention_fwd": flash_attention_fwd}
 
-    print("== phase 1: device", flush=True)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    if smi.returncode != 0:
-        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
-    card = smi.stdout.strip().splitlines()[0]
-    print(f"  torch {torch.__version__} cuda {torch.version.cuda} "
-          f"python {sys.version.split()[0]} device {kind}", flush=True)
 
-    print("== phase 2: build", flush=True)
-    t0 = time.perf_counter()
-    built = build.build()
-    for name, info in built.items():
-        print(f"  {name}.cu: {info['seconds']:.1f}s", flush=True)
-        for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"    {line.strip()}")
-    print(f"  build: {time.perf_counter() - t0:.1f}s wall "
-          f"({len(built)} libraries)", flush=True)
-
-    print("== phase 3: kernels against their plain versions", flush=True)
-    results = {}
-    check_paged(dev, results)
-    check_codec(dev, results)
-    for name, r in results.items():
-        lib = "-" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-        print(f"  {name}: {r['ms']:.4f} ms on the card (eager call "
-              f"{r['eager_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, "
-              f"library {lib} ms, bound {r['bound_ms']:.6f} ms "
-              f"({r['bound_by']})", flush=True)
-
-    print("== phase 4: main path (full-width smollm-135m, bf16)", flush=True)
-    check_main_path_logits()
-
-    kernels = {"paged_decode_attention": paged_decode_attention,
-               "int8_pack": int8_pack, "int8_unpack": int8_unpack}
+def counted(run):
+    """Run ``run()`` with every launch count set to 0 just before it;
+    returns (its result, the counts read just after)."""
+    kernels = kernel_counters()
     for fn in kernels.values():
         fn.launches = 0
     torch.cuda.synchronize()
-    eng = serve.main(MAIN_ARGS)
+    out = run()
     torch.cuda.synchronize()
-    launches = {name: fn.launches for name, fn in kernels.items()}
-    print(f"  launches on the main path: {launches}", flush=True)
+    return out, {name: fn.launches for name, fn in kernels.items()}
 
+
+def check_serve_main_path():
+    """Phase 4's counted run: every request finishes, pages are evicted
+    and resumed compressed, and the serving kernels launched."""
+    from repro_torch.launch import serve
+    eng, launches = counted(lambda: serve.main(MAIN_ARGS))
+    print(f"  launches on the serving path: {launches}", flush=True)
     report = eng.traffic_report()
     sessions = eng.sessions
     if len(sessions) != 16 or any(s.finish_reason != "length"
@@ -427,13 +565,244 @@ def main() -> None:
         fail(f"the main path evicted {report['pages']['evictions']} pages "
              f"and adopted {report['decode_io']['compressed_adopts']} "
              "compressed: it must do both")
-    for name, n in launches.items():
-        if n <= 0:
-            fail(f"kernel {name} was not launched on the main path")
+    for name in ("paged_decode_attention", "int8_pack", "fp8_unpack"):
+        if launches[name] <= 0:
+            fail(f"kernel {name} was not launched on the serving path")
+    return launches
 
+
+def check_train_main_path():
+    """Phase 5's counted run: 20 full-width training steps, host tier, fp8
+    stash codec.  Losses finite and falling, the tier's traffic exact,
+    each kernel launched its expected number of times a step."""
+    from repro_torch.launch import train as train_cli
+    out, launches = counted(lambda: train_cli.main(TRAIN_ARGS))
+    print(f"  launches on the training path: {launches}", flush=True)
+    hist = out["history"]
+    losses = [h["loss"] for h in hist]
+    if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
+        fail(f"training losses not finite or missing: {losses}")
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    print(f"  losses: first 5 mean {first:.4f}, last 5 mean {last:.4f} "
+          f"({losses[0]:.4f} -> {losses[-1]:.4f})", flush=True)
+    if not last < first:
+        fail(f"training loss did not fall: {losses}")
+    report = out["model"].runtime.traffic_report()
+    d_model = out["model"].cfg.d_model
+    raw = TRAIN_LAYERS * TRAIN_BATCH * TRAIN_SEQ * d_model * 2 * TRAIN_STEPS
+    for d in ("stash", "fetch"):
+        r = report.get(d, {})
+        if r.get("raw_bytes") != raw or r.get("wire_bytes") != raw / 2 \
+                or r.get("calls") != TRAIN_LAYERS * TRAIN_STEPS:
+            fail(f"memory traffic {d}: {r}; want {raw} raw bytes, half of "
+                 f"them on the wire, {TRAIN_LAYERS * TRAIN_STEPS} calls")
+    print(f"  memory traffic: {out['model'].runtime.traffic_summary()}; "
+          f"stash and fetch raw {raw} B each, wire half", flush=True)
+    want = {"fp8_pack": TRAIN_LAYERS, "fp8_unpack": TRAIN_LAYERS,
+            "flash_attention_fwd": 2 * TRAIN_LAYERS}
+    for name, per_step in want.items():
+        if launches[name] != per_step * TRAIN_STEPS:
+            fail(f"kernel {name} launched {launches[name]} times in "
+                 f"{TRAIN_STEPS} steps; want {per_step} a step")
+    ms = sorted(h["ms"] for h in hist[1:])
+    step_ms = ms[len(ms) // 2]
+    print(f"  step time: median {step_ms:.1f} ms over steps 2-"
+          f"{TRAIN_STEPS} (first step {hist[0]['ms']:.1f} ms), "
+          f"{TRAIN_BATCH * TRAIN_SEQ / step_ms * 1e3:.0f} tokens/s",
+          flush=True)
+    return out, launches
+
+
+def profile_train_steps(out, n: int = 2):
+    """Device time of ``n`` more steps of the trained state under
+    torch.profiler: busy and idle share, the stash/fetch copies' share,
+    and the kernels that take the most time."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.train.loop import make_train_step
+    model, tc, source, state = (out[k] for k in ("model", "tc", "source",
+                                                 "state"))
+    step = make_train_step(model, tc)
+    batches = [to_device(source.batch_at(TRAIN_STEPS + t), model.device)
+               for t in range(n + 1)]
+    state, _ = step(state, batches[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in batches[1:]:
+            state, _ = step(state, b)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    # device-side events only (kernels, copies, memsets on the one stream
+    # the step runs on); the CPU ops that launched them are not counted
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            ms, count = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3,
+                               count + 1)
+    busy = sum(ms for ms, _ in by_name.values())
+    copies = sum(ms for name, (ms, _) in by_name.items()
+                 if name.startswith(("Memcpy DtoH", "Memcpy HtoD")))
+    if busy <= 0:
+        print("  profile: no device time recorded (not measured)",
+              flush=True)
+        return
+    print(f"  profile of {n} steps: wall {wall:.1f} ms, device busy "
+          f"{busy:.1f} ms ({busy / wall:.1%}), idle {1 - busy / wall:.1%}; "
+          f"stash/fetch copies {copies:.1f} ms ({copies / wall:.1%} of the "
+          "wall time)", flush=True)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    for name, (ms, count) in top:
+        print(f"    {ms:9.2f} ms {ms / busy:6.1%} x{count:<5d} {name[:90]}",
+              flush=True)
+
+
+def train_steps_with(impl: str, n: int = 3):
+    """``n`` full-width training steps from the main path's weights and
+    batches with the flash forward on ``impl``; returns the losses and the
+    first step's gradients."""
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_cli
+    from repro_torch.train.loop import grads_of
+    from repro_torch.train.optimizer import apply_adamw
+    from repro_torch.train.train_state import init_state
+    ops.set_flash_impl(impl)
+    try:
+        model, tc, source = train_cli.build_run(
+            train_cli.parse_args(TRAIN_ARGS))
+        state = init_state(model, tc)
+        losses, first = [], None
+        for t in range(n):
+            batch = to_device(source.batch_at(t), model.device)
+            g, _, m = grads_of(model, tc, state["params"], batch)
+            if t == 0:
+                first = g
+            _, state["opt"], _ = apply_adamw(state["params"], g, state["opt"],
+                                             tc)
+            losses.append(float(m["loss"]))
+    finally:
+        ops.set_flash_impl("cuda")
+    torch.cuda.synchronize()
+    return losses, first
+
+
+def check_train_flash_vs_plain() -> None:
+    """The training path with the flash forward on its plain version, then
+    on the kernel, from the same weights and batches: each step's loss and
+    every gradient leaf of step 1."""
+    from repro_torch import tree
+    want_l, want_g = train_steps_with("torch")
+    got_l, got_g = train_steps_with("cuda")
+    loss_err = max(abs(a - b) for a, b in zip(got_l, want_l))
+    worst, worst_path = 0.0, None
+    leaves_w, paths = tree.flatten(want_g)
+    for w, g, path in zip(leaves_w, tree.leaves(got_g), paths):
+        if not torch.isfinite(g.float()).all():
+            fail(f"gradient {'/'.join(path)} not finite")
+        scale = w.float().abs().max().item() or 1.0
+        rel = (g.float() - w.float()).abs().max().item() / scale
+        if rel > worst:
+            worst, worst_path = rel, "/".join(path)
+    print(f"  training, flash kernel vs plain, 3 steps: losses "
+          f"{[round(x, 5) for x in got_l]} vs {[round(x, 5) for x in want_l]}"
+          f", max |d loss| {loss_err:.3g} (tol {TRAIN_LOSS_ATOL}); step 1 "
+          f"gradients: worst leaf {worst_path} max |d| / max |g| "
+          f"{worst:.3g} (tol {TRAIN_GRAD_RTOL})", flush=True)
+    if loss_err > TRAIN_LOSS_ATOL or worst > TRAIN_GRAD_RTOL:
+        fail("training with the flash kernel disagrees with the plain "
+             "version")
+
+
+def check_blocksparse_path():
+    """Three steps with the stash in pooled HBM through the blocksparse
+    codec: finite losses, blocksparse_pack once per layer a step."""
+    from repro_torch.launch import train as train_cli
+    out, launches = counted(lambda: train_cli.main(BLOCKSPARSE_ARGS))
+    losses = [h["loss"] for h in out["history"]]
+    print(f"  mcdla + blocksparse: losses {[round(x, 4) for x in losses]}, "
+          f"launches {launches}", flush=True)
+    if len(losses) != 3 or not all(map(math.isfinite, losses)):
+        fail(f"mcdla + blocksparse losses not finite: {losses}")
+    for name, per_step in (("blocksparse_pack", TRAIN_LAYERS),
+                           ("fp8_unpack", TRAIN_LAYERS),
+                           ("flash_attention_fwd", 2 * TRAIN_LAYERS)):
+        if launches[name] != 3 * per_step:
+            fail(f"mcdla + blocksparse: {name} launched {launches[name]} "
+                 f"times in 3 steps; want {per_step} a step")
+    return launches
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this script needs a GPU")
+    sys.path.insert(0, os.path.join(REPO, "src"))
+    try:
+        from repro_torch.kernels import build
+    except ImportError as e:
+        fail(f"cannot import the port from {REPO}/src: {e}")
+    dev = torch.device("cuda")
+    kind = torch.cuda.get_device_name(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    print("== phase 1: device", flush=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    if smi.returncode != 0:
+        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    card = smi.stdout.strip().splitlines()[0]
+    print(f"  torch {torch.__version__} cuda {torch.version.cuda} "
+          f"python {sys.version.split()[0]} device {kind} ({card})",
+          flush=True)
+
+    print("== phase 2: build", flush=True)
+    t0 = time.perf_counter()
+    built = build.build()
+    for name, info in built.items():
+        print(f"  {name}.cu: {info['seconds']:.1f}s", flush=True)
+        for line in info["log"].splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"    {line.strip()}")
+    print(f"  build: {time.perf_counter() - t0:.1f}s wall "
+          f"({len(built)} libraries)", flush=True)
+
+    print("== phase 3: kernels against their plain versions", flush=True)
+    results, others = {}, {}
+    check_paged(dev, results)
+    check_codec(dev, results, others)
+    check_flash(dev, results)
+    for name, r in list(results.items()) + list(others.items()):
+        lib = "-" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        print(f"  {name}: {r['ms']:.4f} ms on the card (eager call "
+              f"{r['eager_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, "
+              f"library {lib} ms, bound {r['bound_ms']:.6f} ms "
+              f"({r['bound_by']})", flush=True)
+
+    print("== phase 4: serving main path (full-width smollm-135m, bf16)",
+          flush=True)
+    check_main_path_logits()
+    by_path = {"serve": check_serve_main_path()}
+
+    print("== phase 5: training main path (full-width smollm-135m, bf16, "
+          f"batch {TRAIN_BATCH} x {TRAIN_SEQ}, host tier, fp8 stash)",
+          flush=True)
+    out, by_path["train"] = check_train_main_path()
+    profile_train_steps(out)
+    del out
+    check_train_flash_vs_plain()
+    by_path["train_blocksparse"] = check_blocksparse_path()
+
+    rows = []
+    for name, r in results.items():
+        paths = {p: c[name] for p, c in by_path.items() if c[name]}
+        rows.append(dict(name=name, launches=sum(paths.values()),
+                         launches_by_path=paths, **r))
     print(card)
-    print(json.dumps({"kernels": [dict(name=name, launches=launches[name], **r)
-                                  for name, r in results.items()]}))
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

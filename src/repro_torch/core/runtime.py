@@ -5,20 +5,33 @@ Built once from ``(MeshPlan, MemoryPlan)`` and a device, it owns the
 stash/fetch: :meth:`traffic_report` gives per-direction logical and wire
 bytes plus an estimated transfer time against the tier's bandwidth
 contract.  The serving stack spills cold KV through one
-(``kv_stash``/``kv_fetch``).  The training wrapper (``wrap_layer``) comes
-with the training slice.
+(``kv_stash``/``kv_fetch``); training wraps each sub-layer with
+:meth:`MemoryRuntime.wrap_layer`:
+
+  forward:  y = layer(params, x)            (no graph kept)
+            payload = tier.stash(x)         (copy-out to the backing store)
+  saved:    params by reference, payload    (x itself is NOT saved)
+  backward: x' = tier.fetch(payload)        (then the payload is discarded)
+            recompute the layer from x' under autograd, take its gradient
+
+Unlike the reference, which meters per *trace* (one stash and one fetch
+per wrapped kind under ``scan`` + ``jit``), the port runs eagerly and
+meters every executed call.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
-from repro_torch import hw
+from repro_torch import hw, tree
 from repro_torch.configs.base import MemoryPlan, MeshPlan
 from repro_torch.core.tiers import (MemoryTier, SpillTier, TransferHints,
                                     build_tier)
+
+# big float aux (e.g. encoder states feeding cross-attention) stash too
+AUX_STASH_NDIM = 3
 
 
 @dataclasses.dataclass
@@ -62,6 +75,9 @@ class MemoryRuntime:
         wire = raw * self.tier.wire_ratio(x, hints or TransferHints())
         self._traffic.setdefault(direction, TierTraffic()).add(raw, wire)
 
+    def reset_traffic(self) -> None:
+        self._traffic = {}
+
     def traffic_report(self) -> Dict[str, Any]:
         """Per-tier byte/stall accounting of every metered stash/fetch."""
         bw = self.tier.bandwidth(self.plan, self.chip)
@@ -82,6 +98,14 @@ class MemoryRuntime:
                                     if bw > 0 and total_wire else 0.0)
         return report
 
+    def traffic_summary(self) -> str:
+        r = self.traffic_report()
+        per = {d: f"{fmt_bytes(v['wire_bytes'])}/{v['calls']}x of "
+                  f"{fmt_bytes(v['raw_bytes'])} raw"
+               for d, v in r.items() if isinstance(v, dict)}
+        return (f"tier={r['tier']} wire={fmt_bytes(r['wire_bytes_total'])} "
+                f"est_transfer={r['est_transfer_s']*1e3:.2f}ms {per}")
+
     # ------------------------------------------------------------------
     # data path (metered tier passthrough); ``direction`` labels the
     # traffic-report bucket
@@ -101,11 +125,144 @@ class MemoryRuntime:
         return x
 
     def discard(self, payload) -> None:
-        """Release a parked payload's capacity-contract charge (a
-        :class:`~repro_torch.core.tiers.SpillTier` in the stack gets its
-        budget back).  No-op for tiers without a byte ledger."""
-        if isinstance(self.tier, SpillTier):
-            self.tier.discard(payload)
+        """Release a parked payload's capacity-contract charge: the first
+        :class:`~repro_torch.core.tiers.SpillTier` down the stack's
+        ``.inner`` chain gets its budget back.  No-op for tiers without a
+        byte ledger."""
+        tier = self.tier
+        while tier is not None:
+            if isinstance(tier, SpillTier):
+                tier.discard(payload)
+                return
+            tier = getattr(tier, "inner", None)
+
+    # ------------------------------------------------------------------
+    # the one training wrapper
+    def wrap_layer(self, layer_fn: Callable, name: str = "layer"
+                   ) -> Callable:
+        """Wrap ``layer_fn(params, x, *aux) -> y`` (``y`` a tensor or a
+        tuple of tensors) so the saved-for-backward copy of ``x`` lives in
+        this runtime's tier.
+
+        ``params`` (a nested dict of tensors) and small aux are saved by
+        reference; float aux with ndim >= 3 are stashed too, uncompressed
+        (they must round-trip bit-exactly).  When no input needs a gradient
+        the layer runs bare: no stash, no payload left behind (JAX's primal
+        path).  Returns ``layer_fn`` itself when the tier does not offload.
+        """
+        if not self.offloads:
+            return layer_fn
+        runtime = self
+
+        def wrapped(params, x, *aux):
+            leaves, paths = tree.flatten(params)
+            if not torch.is_grad_enabled() or not any(
+                    t.requires_grad for t in [x, *leaves, *aux]
+                    if isinstance(t, torch.Tensor)):
+                return layer_fn(params, x, *aux)
+            spec = _WrapSpec(runtime, layer_fn, name, paths, len(leaves),
+                             aux)
+            outs = _StashedLayer.apply(spec, x, *leaves,
+                                       *[a for a in aux
+                                         if isinstance(a, torch.Tensor)])
+            return outs[0] if spec.single else outs
+
+        return wrapped
+
+
+class _WrapSpec:
+    """What one wrapped call's backward needs besides its saved tensors:
+    the runtime, the layer, the parameter paths and which aux to stash."""
+
+    def __init__(self, runtime: MemoryRuntime, layer_fn: Callable, name: str,
+                 paths, n_params: int, aux):
+        self.runtime, self.layer_fn, self.name = runtime, layer_fn, name
+        self.paths, self.n_params = paths, n_params
+        # aux entries that are tensors travel through apply(); the others
+        # are rebuilt from their slot
+        self.aux_template = [None if isinstance(a, torch.Tensor) else a
+                             for a in aux]
+        self.single = True
+
+    def hints(self, dtype=None, allow_compress=True) -> TransferHints:
+        return TransferHints(dtype=dtype, allow_compress=allow_compress,
+                             name=self.name)
+
+    def call(self, x, leaves, aux_tensors):
+        it = iter(aux_tensors)
+        aux = [next(it) if a is None else a for a in self.aux_template]
+        return self.layer_fn(tree.unflatten(self.paths, list(leaves)), x,
+                             *aux)
+
+
+class _StashedLayer(torch.autograd.Function):
+    """The vDNN offload of one layer input (paper §III-B, footnote 4).
+
+    Forward runs the layer without a graph and stashes ``x`` through the
+    tier; backward fetches it (then discards the payload, so a
+    :class:`~repro_torch.core.tiers.SpillTier` gets its budget back for
+    the next step), recomputes the layer under autograd and returns the
+    gradients of the parameters, ``x`` and the float aux."""
+
+    @staticmethod
+    def forward(ctx, spec: _WrapSpec, x, *rest):
+        leaves = rest[:spec.n_params]
+        aux = rest[spec.n_params:]
+        out = spec.call(x, leaves, aux)
+        spec.single = isinstance(out, torch.Tensor)
+        outs = (out,) if spec.single else tuple(out)
+        rt = spec.runtime
+        ctx.spec = spec
+        ctx.x_dtype = x.dtype
+        ctx.payload = rt.stash(x.detach(), spec.hints())
+        ctx.aux_payloads = {}
+        kept_aux = []
+        for i, a in enumerate(aux):
+            if (rt.memory.stash_aux and a.is_floating_point()
+                    and a.ndim >= AUX_STASH_NDIM):
+                ctx.aux_payloads[i] = (rt.stash(
+                    a.detach(), spec.hints(allow_compress=False)), a.dtype)
+                kept_aux.append(None)
+            else:
+                kept_aux.append(a)
+        ctx.kept_aux = kept_aux
+        ctx.save_for_backward(*leaves)
+        return outs
+
+    @staticmethod
+    def backward(ctx, *grads):
+        spec, rt = ctx.spec, ctx.spec.runtime
+        x = rt.fetch(ctx.payload, spec.hints(dtype=ctx.x_dtype))
+        rt.discard(ctx.payload)
+        ctx.payload = None
+        aux = list(ctx.kept_aux)
+        for i, (payload, dtype) in ctx.aux_payloads.items():
+            aux[i] = rt.fetch(payload, TransferHints(
+                dtype=dtype, allow_compress=False, name=f"{spec.name}_aux"))
+            rt.discard(payload)
+        leaves = ctx.saved_tensors
+        with torch.enable_grad():
+            x = x.detach().requires_grad_(ctx.needs_input_grad[1])
+            leaves = [t.detach().requires_grad_(need) for t, need in
+                      zip(leaves, ctx.needs_input_grad[2:])]
+            aux = [a.detach().requires_grad_(need)
+                   if a.is_floating_point() else a for a, need in
+                   zip(aux, ctx.needs_input_grad[2 + spec.n_params:])]
+            out = spec.call(x, leaves, aux)
+            outs = (out,) if spec.single else tuple(out)
+            inputs = [x, *leaves, *aux]
+            wanted = [t for t in inputs
+                      if isinstance(t, torch.Tensor) and t.requires_grad]
+            pairs = [(o, g) for o, g in zip(outs, grads)
+                     if g is not None and o.requires_grad]
+            got = torch.autograd.grad(
+                [o for o, _ in pairs], wanted, [g for _, g in pairs],
+                allow_unused=True) if pairs and wanted else \
+                [None] * len(wanted)
+        it = iter(got)
+        return (None,) + tuple(
+            next(it) if isinstance(t, torch.Tensor) and t.requires_grad
+            else None for t in inputs)
 
 
 def fmt_bytes(n: float) -> str:

@@ -19,6 +19,8 @@ Tiers ported so far:
   really is copied to pinned host memory and back.
 * :class:`SpillTier`      — decorator: primary tier until its capacity
   contract is spent, then overflow to a cheaper store.
+* :class:`CompressedTier` — decorator: quantise-and-pack through a stash
+  codec's kernels before the inner tier's stash.
 
 Policies map to tiers through :func:`build_tier` — the one place that
 branches on ``MemoryPlan.policy`` strings.
@@ -33,6 +35,7 @@ import torch
 
 from repro_torch import hw
 from repro_torch.configs.base import MemoryPlan, MeshPlan
+from repro_torch.core.compress import decode_tensor, encode_tensor, get_codec
 from repro_torch.core.pool import PoolAccountant, PoolAxes
 
 # (data, optional codec scale) — the opaque unit a tier hands back from stash
@@ -186,6 +189,63 @@ class HostTier(MemoryTier):
 
 
 # ---------------------------------------------------------------------------
+class CompressedTier(MemoryTier):
+    """Decorator: quantise-and-pack before any tier's stash.
+
+    Halves (fp8, int8, blocksparse) the bytes that cross the wire AND that
+    occupy the inner tier.  A stash encodes the whole tensor with one
+    per-tensor scale through the codec's pack kernel (one row block) and
+    hands the packed bytes to the inner tier; a fetch brings them back
+    through the inner tier and decodes them with the unpack kernel.
+    Tensors the hints mark ``allow_compress=False`` (and non-float ones)
+    pass through uncompressed.
+    """
+
+    kind = "compressed"
+
+    def __init__(self, inner: MemoryTier, codec: str = "fp8"):
+        super().__init__(inner.plan, inner.memory, inner.device)
+        self.inner = inner
+        self.codec = get_codec(codec)
+
+    def stash(self, x: torch.Tensor, hints: TransferHints) -> Payload:
+        if not hints.allow_compress or not self.codec.applies_to(x):
+            return self.inner.stash(x, hints)
+        q, scale = encode_tensor(self.codec, x)
+        payload, _ = self.inner.stash(q, hints)
+        return (payload, scale)
+
+    def fetch(self, payload: Payload, hints: TransferHints) -> torch.Tensor:
+        q, scale = payload
+        if scale is None:
+            return self.inner.fetch(payload, hints)
+        raw = self.inner.fetch((q, None), hints)
+        return decode_tensor(self.codec, raw, scale,
+                             hints.dtype or torch.bfloat16)
+
+    def bandwidth(self, plan: MeshPlan, chip: hw.Chip = hw.H100) -> float:
+        return self.inner.bandwidth(plan, chip)
+
+    def capacity(self, accountant: PoolAccountant) -> float:
+        return self.inner.capacity(accountant)
+
+    @property
+    def offloads(self) -> bool:
+        return self.inner.offloads
+
+    def payload_ratio(self) -> float:
+        return self.codec.ratio * self.inner.payload_ratio()
+
+    def wire_ratio(self, x: torch.Tensor, hints: TransferHints) -> float:
+        if hints.allow_compress and self.codec.applies_to(x):
+            return self.codec.ratio * self.inner.wire_ratio(x, hints)
+        return self.inner.wire_ratio(x, hints)
+
+    def describe(self) -> str:
+        return f"{self.inner.describe()}+{self.codec.name}"
+
+
+# ---------------------------------------------------------------------------
 class SpillPayload:
     """Payload of a :class:`SpillTier` stash: the inner leg's payload plus
     which leg took it and how many bytes it charged."""
@@ -296,16 +356,17 @@ def build_tier(memory: MemoryPlan, plan: MeshPlan,
                device: torch.device) -> MemoryTier:
     """Resolve a :class:`MemoryPlan` to its tier stack.
 
-    Stash compression (``memory.compress``, the reference's
-    ``CompressedTier``) is not ported yet: it carries the training slice's
-    activation stash, and serving spill applies its codecs per page."""
+    ``compress != 'none'`` wraps the tier in a :class:`CompressedTier` (a
+    no-op stack on the device tier, which never moves bytes)."""
     if memory.policy not in _TIER_REGISTRY:
+        hint = (" ('auto' needs the KEEP/POOL/RECOMPUTE planner, "
+                "core/dag.py and core/policy.py, which port with slice 5)"
+                if memory.policy == "auto" else "")
         raise KeyError(f"unknown memory policy {memory.policy!r}; "
-                       f"registered: {registered_policies()}")
+                       f"registered: {registered_policies()}{hint}")
     tier = _TIER_REGISTRY[memory.policy](memory, plan, device)
     if memory.compress != "none" and tier.offloads:
-        raise NotImplementedError(
-            "stash compression (CompressedTier) is not ported yet")
+        tier = CompressedTier(tier, memory.compress)
     return tier
 
 

@@ -1,12 +1,13 @@
-"""Dispatch of the paged-attention decode between its implementations.
+"""Dispatch of the attention kernels between their implementations.
 
-A registry flag (not a bool) so backends stay pluggable: the serving stack
-routes through :func:`paged_attention`, and the active implementation is
-swapped without touching the call sites.
+Registry flags (not bools) so backends stay pluggable: the serving stack
+routes through :func:`paged_attention` and training attention through
+:func:`flash_attention`, and the active implementation is swapped without
+touching the call sites.
 
-* ``"cuda"``  — the hand-written kernel (``kernels/paged_attention.py``);
-  a CPU tensor takes the kernel's plain version there, a CUDA tensor the
-  kernel.
+* ``"cuda"``  — the hand-written kernel (``kernels/paged_attention.py``,
+  ``kernels/flash_attention.py``); a CPU tensor takes the kernel's plain
+  version there, a CUDA tensor the kernel.
 * ``"torch"`` — the plain version on any device (the yardstick the kernel
   is held against on the card).
 """
@@ -14,6 +15,9 @@ from __future__ import annotations
 
 from typing import Optional
 
+import torch
+
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import ref as kref
 
@@ -48,3 +52,55 @@ def paged_attention(q, k_pool, v_pool, page_map, cache_index, *,
     return fn(q, k_pool, v_pool, page_map, cache_index, window=window,
               softcap=softcap, kq_pool=kq_pool, vq_pool=vq_pool,
               k_scale=k_scale, v_scale=v_scale)
+
+
+# ---------------------------------------------------------------------------
+FLASH_IMPLS = ("cuda", "torch")
+_FLASH_IMPL = {"default": "cuda"}
+
+
+def set_flash_impl(name: str) -> None:
+    """Select the flash-attention forward ('cuda' kernel / 'torch' plain)."""
+    if name not in FLASH_IMPLS:
+        raise ValueError(f"unknown flash-attention impl {name!r}; "
+                         f"registered: {FLASH_IMPLS}")
+    _FLASH_IMPL["default"] = name
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Kernel forward, backward recomputed through the blockwise twin.
+
+    The reference pairs its Pallas forward with a backward that recomputes
+    through XLA's ``blockwise_attention`` (``kernels/ops.py:92-119``): the
+    backward runs outside any Pallas kernel there, so here it is plain
+    PyTorch autograd through ``models/attention.blockwise_attention`` by
+    design.  It holds a (B, K, G, S_chunk, T) f32 score tensor per query
+    chunk while it runs."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
+        fwd = (kref.flash_attention_ref if _FLASH_IMPL["default"] == "torch"
+               else fa.flash_attention_fwd)
+        return fwd(q, k, v, causal=causal, window=window)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad():
+            q, k, v = (t.detach().requires_grad_(need) for t, need in
+                       zip((q, k, v), ctx.needs_input_grad[:3]))
+            o = kref.flash_attention_ref(q, k, v, causal=ctx.causal,
+                                         window=ctx.window)
+            wanted = [t for t in (q, k, v) if t.requires_grad]
+            got = iter(torch.autograd.grad(o, wanted, g))
+        return tuple(next(got) if t.requires_grad else None
+                     for t in (q, k, v)) + (None, None)
+
+
+def flash_attention(q, k, v, causal: bool = True, window: int = 0):
+    """q: (B, H, S, d); k/v: (B, Hkv, T, d) -> (B, H, S, d).  The active
+    forward (kernel or plain); backward recomputes through the blockwise
+    twin (the same math)."""
+    return _FlashAttention.apply(q, k, v, causal, window)

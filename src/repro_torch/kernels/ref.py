@@ -62,21 +62,74 @@ def true_div(x: torch.Tensor, divisor: float) -> torch.Tensor:
     return x / torch.full_like(x, divisor)
 
 
+# codec constants, shared with core/compress.py (the reference keeps them in
+# kernels/offload_pack.py and mirrors them in core/compress.py)
+FP8_MAX = 448.0                 # float8_e4m3fn dynamic range
+INT8_MAX = 127.0
+BLOCKSPARSE_TAU = 32.0          # prune |x| < block_absmax / TAU to exact zero
+
+
+def _blocks(x: torch.Tensor, block_rows: int
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (R, C) as f32 row blocks (nb, block_rows, C) and their absmax."""
+    R, C = x.shape
+    xb = x.reshape(R // block_rows, block_rows, C).float()
+    return xb, xb.abs().amax(dim=(1, 2))
+
+
+def fp8_pack_ref(x: torch.Tensor, block_rows: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Blockwise fp8 quantize: x (R, C) -> (q fp8 (R, C), scales (R/br,))."""
+    xb, absmax = _blocks(x, block_rows)
+    scale = torch.clamp(true_div(absmax, FP8_MAX), min=1e-12)
+    q = (xb / scale[:, None, None]).to(torch.float8_e4m3fn)
+    return q.reshape(x.shape), scale
+
+
 def int8_pack_ref(x: torch.Tensor, block_rows: int
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Blockwise int8 quantize: x (R, C) -> (q int8 (R, C), scales (R/br,))."""
-    R, C = x.shape
-    nb = R // block_rows
-    xb = x.reshape(nb, block_rows, C).float()
-    absmax = xb.abs().amax(dim=(1, 2))
-    scale = torch.clamp(true_div(absmax, 127.0), min=1e-30)
-    q = torch.clamp(torch.round(xb / scale[:, None, None]), -127.0, 127.0)
-    return q.to(torch.int8).reshape(R, C), scale
+    xb, absmax = _blocks(x, block_rows)
+    scale = torch.clamp(true_div(absmax, INT8_MAX), min=1e-30)
+    q = torch.clamp(torch.round(xb / scale[:, None, None]), -INT8_MAX,
+                    INT8_MAX)
+    return q.to(torch.int8).reshape(x.shape), scale
 
 
-def int8_unpack_ref(q: torch.Tensor, scale: torch.Tensor, block_rows: int,
-                    dtype=torch.bfloat16) -> torch.Tensor:
+def blocksparse_pack_ref(x: torch.Tensor, block_rows: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Blockwise int8 quantize + in-block magnitude pruning: entries with
+    |x| < block_absmax / BLOCKSPARSE_TAU become exact zeros."""
+    xb, absmax = _blocks(x, block_rows)
+    scale = torch.clamp(true_div(absmax, INT8_MAX), min=1e-30)
+    q = torch.clamp(torch.round(xb / scale[:, None, None]), -INT8_MAX,
+                    INT8_MAX)
+    keep = xb.abs() >= true_div(absmax, BLOCKSPARSE_TAU)[:, None, None]
+    q = torch.where(keep, q, 0.0)
+    return q.to(torch.int8).reshape(x.shape), scale
+
+
+def fp8_unpack_ref(q: torch.Tensor, scale: torch.Tensor, block_rows: int,
+                   dtype=torch.bfloat16) -> torch.Tensor:
+    """The shared unpack: (q * scale) cast to ``dtype``, for int8 and fp8
+    payloads alike."""
     R, C = q.shape
-    nb = R // block_rows
-    xb = q.reshape(nb, block_rows, C).float() * scale[:, None, None]
+    xb = q.reshape(R // block_rows, block_rows, C).float() \
+        * scale[:, None, None]
     return xb.reshape(R, C).to(dtype)
+
+
+int8_unpack_ref = fp8_unpack_ref
+
+
+# ---------------------------------------------------------------------------
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: int = 0
+                        ) -> torch.Tensor:
+    """Plain twin of the flash forward: q (B, H, S, d), k/v (B, Hkv, T, d)
+    -> (B, H, S, d), through ``models/attention.blockwise_attention`` in its
+    (B, S, H, d) layout (the reference's ``kernels/ops._fa_ref``)."""
+    from repro_torch.models.attention import blockwise_attention
+    o = blockwise_attention(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), causal=causal, window=window)
+    return o.transpose(1, 2)

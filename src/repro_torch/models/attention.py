@@ -1,7 +1,9 @@
-"""Attention: dense GQA/MHA/SWA for serving.
+"""Attention: dense GQA/MHA/SWA for training and serving.
 
 * :func:`blockwise_attention` — prefill: query chunks, each over its static
-  causal / sliding-window KV span, plain torch.
+  causal / sliding-window KV span, plain torch.  Training attention runs
+  the flash kernel instead (``kernels/ops.flash_attention``), whose plain
+  twin and backward are this function.
 * :func:`decode_attention` — single-token decode against a KV cache.
 * :func:`attention_block` — projections + RoPE + attend + output
   projection, with the serving cache branches: prefill writes the prompt's
@@ -166,9 +168,18 @@ def attention_block(params: dict, ctx: ModelContext, x: torch.Tensor,
         else:
             o = blockwise_attention(q, k, v, causal=causal, window=window,
                                     softcap=cfg.logit_softcap)
+    elif cfg.logit_softcap > 0:
+        raise NotImplementedError(
+            "training attention runs the flash kernel, which has no "
+            "softcap (nor has the reference's); no configuration sets one")
     else:
-        o = blockwise_attention(q, k, v, causal=causal, window=window,
-                                softcap=cfg.logit_softcap)
+        # training: the flash forward on (B, H, S, d) views of the
+        # projections (no transpose copy), backward through the blockwise
+        # twin
+        from repro_torch.kernels import ops as kops
+        o = kops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                 v.transpose(1, 2), causal,
+                                 window).transpose(1, 2)
 
     out = o.reshape(B, S, H * hd) @ params["wo"]
     return out, cache

@@ -1,4 +1,5 @@
-"""Shared layer primitives: norms, activations, RoPE, embeddings.
+"""Shared layer primitives: norms, activations, RoPE, embeddings, chunked
+cross-entropy.
 
 Plain functions over explicit parameter dicts (the reference's layout:
 weights stored ``(d_in, d_out)``, norm scales in float32).
@@ -6,10 +7,11 @@ weights stored ``(d_in, d_out)``, norm scales in float32).
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 
@@ -21,6 +23,19 @@ class ModelContext:
     sharding constraints) have nothing to do here and are left out."""
 
     cfg: ModelConfig
+    mode: str = "train"                  # train | prefill | decode
+    runtime: Optional[Any] = None        # core.runtime.MemoryRuntime
+
+    def wrap(self, name: str, fn: Callable) -> Callable:
+        """vDNN-wrap a sub-layer for training (``MemoryRuntime.wrap_layer``):
+        the layer's input is stashed to the configured memory tier and the
+        layer recomputed in backward.  No-op for serving or a tier that
+        does not offload.  The reference also returns the bare layer
+        without a mesh; here the card is the one-device mesh, so the port
+        wraps whenever the tier offloads."""
+        if self.mode != "train" or self.runtime is None:
+            return fn
+        return self.runtime.wrap_layer(fn, name=name)
 
 
 # ---------------------------------------------------------------------------
@@ -103,3 +118,36 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# chunked cross-entropy (keeps (B, S, V) logits out of live memory)
+def _chunk_nll(hh: torch.Tensor, ll: torch.Tensor, mm: torch.Tensor,
+               table: torch.Tensor) -> torch.Tensor:
+    logits = (hh @ table.T).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, -1, ll[..., None])[..., 0]
+    return ((lse - picked) * mm).sum()
+
+
+def chunked_cross_entropy(h: torch.Tensor, table: torch.Tensor,
+                          labels: torch.Tensor,
+                          mask: Optional[torch.Tensor] = None,
+                          chunk: int = 512
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """h: (B, S, D); table: (V, D) (tied head) -> (mean loss, n_tokens).
+
+    Walks S in at most 8 chunks; each chunk's (B, chunk, V) logits are
+    recomputed in backward (``torch.utils.checkpoint``), never saved."""
+    B, S, _ = h.shape
+    chunk = max(chunk, -(-S // 8))     # <= 8 chunks, as the reference
+    chunk = min(chunk, S)
+    if mask is None:
+        mask = torch.ones((B, S), dtype=torch.float32, device=h.device)
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    for s0 in range(0, S, chunk):
+        sl = slice(s0, s0 + chunk)
+        tot = tot + checkpoint(_chunk_nll, h[:, sl], labels[:, sl],
+                               mask[:, sl], table, use_reentrant=False)
+    cnt = mask.sum()
+    return tot / torch.clamp(cnt, min=1.0), cnt

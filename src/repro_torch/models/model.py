@@ -1,8 +1,9 @@
 """Model facade — one object per (architecture x memory plan x device).
 
-Wraps the transformer stack with parameter init, cache construction and
-the serving entry points (prefill / decode).  Training (``loss_fn``) comes
-with the training slice.
+Wraps the transformer stack with parameter init, the training loss
+(chunked CE over the tied table, every sub-layer wrapped by the memory
+runtime), cache construction and the serving entry points (prefill /
+decode).
 """
 from __future__ import annotations
 
@@ -15,10 +16,12 @@ from repro_torch.configs.base import (MemoryPlan, MeshPlan, ModelConfig,
                                       RunConfig)
 from repro_torch.core.runtime import MemoryRuntime
 from repro_torch.models import transformer as tfm
-from repro_torch.models.layers import ModelContext, torch_dtype
+from repro_torch.models.layers import (ModelContext, chunked_cross_entropy,
+                                       torch_dtype)
 
 Params = Dict[str, Any]
 SINGLE_DEVICE = MeshPlan((1,), ("data",))
+AUX_WEIGHT = 0.01
 
 
 def resolve_device(device) -> torch.device:
@@ -42,8 +45,8 @@ class Model:
         self.dtype = torch_dtype(self.cfg.dtype)
         self.runtime = MemoryRuntime(self.plan, self.memory, self.device)
 
-    def ctx(self) -> ModelContext:
-        return ModelContext(cfg=self.cfg)
+    def ctx(self, mode: str = "decode") -> ModelContext:
+        return ModelContext(cfg=self.cfg, mode=mode, runtime=self.runtime)
 
     def init(self, seed: int = 0) -> Params:
         """Random parameters from a seeded generator on the model device."""
@@ -53,12 +56,32 @@ class Model:
     def init_cache(self, batch: int, seq: int) -> Params:
         return tfm.init_caches(self.cfg, batch, seq, self.dtype, self.device)
 
+    # ------------------------------------------------------------------
+    # training
+    def loss_fn(self, params: Params, batch: Dict[str, torch.Tensor]
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """(total loss, metrics): chunked CE over the tied table, labels
+        < 0 masked, plus ``AUX_WEIGHT`` x the layers' aux loss."""
+        cfg = self.cfg
+        ctx = self.ctx("train")
+        h, aux = tfm.forward_train(params, ctx, batch["tokens"],
+                                   batch["positions"])
+        table = params["embed"] if cfg.tie_embeddings else params["unembed"]
+        labels = batch["labels"]
+        mask = (labels >= 0).float()
+        loss, n_tok = chunked_cross_entropy(h, table, labels.clamp(min=0),
+                                            mask)
+        total = loss + AUX_WEIGHT * aux
+        return total, {"loss": loss, "aux_loss": aux, "tokens": n_tok}
+
+    # ------------------------------------------------------------------
+    # serving
     @torch.no_grad()
     def prefill(self, params: Params, batch: Dict[str, torch.Tensor],
                 caches: Params) -> Tuple[torch.Tensor, Params]:
         """Process the prompt into ``caches`` (in place); returns
         (last-token logits (B, V), caches)."""
-        ctx = self.ctx()
+        ctx = self.ctx("prefill")
         h, caches = tfm.forward_serve(params, ctx, batch["tokens"],
                                       batch["positions"], caches,
                                       cache_index=0)
@@ -80,5 +103,7 @@ class Model:
 
 def build_model(run: RunConfig, device="cuda") -> Model:
     """The Model for a run on one device (``run.mesh`` is not used: this
-    slice has no mesh)."""
+    slice has no mesh).  Every policy ported so far stashes all layer
+    groups when its tier offloads (host, mcdla, spill) and none otherwise;
+    the planner-chosen split of ``auto`` ports with slice 5."""
     return Model(cfg=run.model, memory=run.memory, device=device)

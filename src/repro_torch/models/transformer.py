@@ -10,6 +10,7 @@ encoder-decoder branches come with later slices.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -123,6 +124,49 @@ def unembed(params: Params, ctx: ModelContext, h: torch.Tensor
             ) -> torch.Tensor:
     table = params["embed"] if ctx.cfg.tie_embeddings else params["unembed"]
     return h @ table.T
+
+
+def _train_sublayer(ctx: ModelContext, kind: str, params: dict,
+                    x: torch.Tensor, positions: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One sub-layer of the training stack -> (x_out, aux loss)."""
+    y, _ = run_sublayer(kind, params, ctx, x, positions)
+    return y, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def forward_train(params: Params, ctx: ModelContext, tokens: torch.Tensor,
+                  positions: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (hidden (B, S, D), aux_loss).
+
+    Every layer group runs wrapped by the memory runtime (``ctx.wrap``:
+    input stashed to the tier, layer recomputed in backward; the bare
+    layer when the tier does not offload).  The reference's split into a
+    stashed and an unstashed scan serves the ``auto`` planner, which ports
+    with slice 5."""
+    _require_dense(ctx.cfg)
+    cfg = ctx.cfg
+    group, n_groups = arch_group(cfg)
+    x = embed_tokens(params, ctx, tokens)
+
+    def bare(kind):
+        return functools.partial(_train_sublayer, ctx, kind)
+
+    wrapped = {k: ctx.wrap(f"{k}_layer", bare(k)) for k in set(group)}
+    # one unbind per stacked leaf: backward stacks the per-layer gradients
+    # once, instead of a full-size zero tensor per layer and leaf
+    stacks = []
+    for j in range(len(group)):
+        leaves, paths = tree.flatten(params["groups"][f"sub_{j}"])
+        stacks.append((paths, [t.unbind(0) for t in leaves]))
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for layer in range(n_groups):
+        for j, kind in enumerate(group):
+            paths, unbound = stacks[j]
+            p = tree.unflatten(paths, [u[layer] for u in unbound])
+            x, a = wrapped[kind](p, x, positions)
+            aux = aux + a
+    return apply_norm(cfg, params["final_norm"], x), aux
 
 
 def forward_serve(params: Params, ctx: ModelContext, tokens: torch.Tensor,

@@ -137,3 +137,119 @@ def test_engine_kernels_match_plain_under_eviction(dev):
     assert got == want
     assert report["decode_io"]["compressed_adopts"] > 0
     assert all(f.launches > n for f, n in counts.items())
+
+
+# ---------------------------------------------------------------------------
+# slice 2: the stash codecs, the flash forward, a wrapped training step
+def _codec_values(dev, dtype, rows, cols, seed):
+    """Values over many magnitudes, with the block absmax 448, fp8
+    rounding ties and e4m3 subnormals and their ties in the first row."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn((rows, cols), generator=g) * 60
+    x[rows // 2:] *= 1e-3
+    x[0, :8] = torch.tensor([448.0, -448.0, 1.0625, -3.375, 2.0 ** -9,
+                             1.5 * 2.0 ** -9, -2.5 * 2.0 ** -9, 2.0 ** -10])
+    return x.clamp(-448, 448).to(dev, dtype)
+
+
+@pytest.mark.parametrize("name", ["fp8_pack", "int8_pack",
+                                  "blocksparse_pack"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,block_rows", [(8192, 8192), (1440, 1440),
+                                             (1440, 16)])
+def test_pack_unpack_bit_exact(dev, name, dtype, rows, block_rows):
+    """Every pack and the shared unpack == their plain versions, bit for
+    bit: a whole stashed activation as one row block (split over many
+    thread blocks), a page leaf, and 90 row blocks."""
+    kern = getattr(offload_pack, name)
+    plain = getattr(ref, name + "_ref")
+    x = _codec_values(dev, dtype, rows, 576 if rows == 8192 else 64, rows)
+    before = kern.launches
+    q, s = kern(x, block_rows=block_rows)
+    assert kern.launches == before + 1
+    qr, sr = plain(x, block_rows)
+    assert torch.equal(q.view(torch.uint8), qr.view(torch.uint8))
+    assert torch.equal(s, sr)
+    for out in (torch.float32, torch.bfloat16):
+        y = offload_pack.fp8_unpack(q, s, block_rows=block_rows, dtype=out)
+        assert torch.equal(y, ref.fp8_unpack_ref(q, s, block_rows, out))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,T,d,causal,window", [
+    (1024, 1024, 64, True, 0), (1024, 1024, 64, True, 256),
+    (1000, 1000, 64, True, 0), (200, 330, 32, False, 0),
+    (256, 256, 128, True, 0), (77, 77, 32, True, 16)])
+def test_flash_forward_matches_plain(dev, dtype, S, T, d, causal, window):
+    """Kernel == plain twin: f32 to 2e-5, bf16 to two bf16 ulps of the
+    largest output (the two sum in different orders, then round once);
+    strided (B, S, H, d) views give the same result as contiguous ones."""
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    g = torch.Generator(device="cpu").manual_seed(S + d)
+    q = torch.randn((2, 9, S, d), generator=g).to(dev, dtype)
+    k = torch.randn((2, 3, T, d), generator=g).to(dev, dtype)
+    v = torch.randn((2, 3, T, d), generator=g).to(dev, dtype)
+    before = flash_attention_fwd.launches
+    got = flash_attention_fwd(q, k, v, causal=causal, window=window)
+    assert flash_attention_fwd.launches == before + 1
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    tol = 2e-5 if dtype == torch.float32 else _bf16_ulps(want, 2)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+    views = [t.transpose(1, 2).contiguous().transpose(1, 2)
+             for t in (q, k, v)]
+    again = flash_attention_fwd(*views, causal=causal, window=window)
+    assert torch.equal(again, got)
+
+
+def test_flash_rejects_what_it_cannot_run(dev):
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    q = torch.randn((1, 2, 8, 48), device=dev)
+    with pytest.raises(ValueError):          # head dim 48: no fallback
+        flash_attention_fwd(q, q, q)
+    with pytest.raises(TypeError):           # mixed dtypes
+        flash_attention_fwd(q[..., :32], q[..., :32].bfloat16(),
+                            q[..., :32])
+
+
+@pytest.mark.parametrize("codec,loss_tol,grad_tol", [
+    # f32 on both devices: matmul and attention sums in different orders
+    ("none", 1e-4, 1e-4),
+    # the fp8 stash rounds layer inputs that differ by f32 rounding
+    # between the devices; a value at an fp8 rounding tie can land one
+    # fp8 step apart
+    ("fp8", 1e-3, 2e-2)])
+def test_wrapped_train_step_cuda_matches_cpu(dev, codec, loss_tol, grad_tol):
+    """One reduced-size training step under the host tier, every layer
+    wrapped (stash, fetch, recompute), on the card against the CPU: loss
+    and every gradient leaf, from the same weights and batch; the card's
+    step ran the flash and codec kernels."""
+    from repro_torch import tree
+    from repro_torch.configs import MemoryPlan, RunConfig, TrainConfig
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import SyntheticLM, to_device
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.models.model import build_model
+    from repro_torch.train.loop import grads_of
+
+    cfg = ARCHS["smollm-135m"].reduced(dtype="float32")
+    tc = TrainConfig()
+    batch = SyntheticLM(cfg, batch=2, seq=64, seed=1).batch_at(0)
+    params = Model(cfg, device="cpu").init(0)
+    out = {}
+    for device in ("cpu", dev):
+        model = build_model(RunConfig(
+            model=cfg, shape=ShapeConfig("t", 64, 2, "train"),
+            memory=MemoryPlan(policy="host", compress=codec), train=tc),
+            device=device)
+        p = tree.map(lambda t: t.to(device).requires_grad_(), params)
+        launches = flash_attention_fwd.launches
+        g, loss, _ = grads_of(model, tc, p, to_device(batch, device))
+        out[str(device)] = (float(loss), tree.map(lambda t: t.cpu(), g),
+                            flash_attention_fwd.launches - launches)
+        assert model.runtime.traffic_report()["stash"]["calls"] == 2
+    (lc, gc, nc), (lg, gg, ng) = out["cpu"], out[str(dev)]
+    assert nc == 0 and ng == 4          # forward + recompute, 2 layers
+    assert abs(lc - lg) < loss_tol
+    for a, b in zip(tree.leaves(gc), tree.leaves(gg)):
+        scale = a.abs().max().item() or 1.0
+        assert (a - b).abs().max().item() / scale < grad_tol

@@ -80,3 +80,14 @@ def test_chip_smoke_fails_without_cuda(tmp_path):
                               capture_output=True, text=True, timeout=120)
         assert proc.returncode != 0
         assert '"ok": true' not in proc.stdout
+
+
+@pytest.mark.parametrize("module", [
+    "repro_torch.data.pipeline", "repro_torch.kernels.flash_attention",
+    "repro_torch.parallel.pipeline", "repro_torch.train.optimizer",
+    "repro_torch.train.train_state", "repro_torch.train.loop",
+    "repro_torch.launch.train"])
+def test_training_slice_modules_are_covered(module):
+    """The training slice's modules are among those the import checks
+    above walk (no jax / repro import, importable without a card)."""
+    assert module in _modules()

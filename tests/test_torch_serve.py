@@ -125,30 +125,32 @@ def test_paged_streams_match_reference(models, decode_kernel):
     assert io["in_place"] == decode_kernel and io["steps"] > 0
 
 
-def test_eviction_streams_and_traffic_match_reference(models):
-    """An overcommitted pool (46 page evictions) with an int8 tenant codec
-    under fair preemption: the in-place kernel path (cold pages resume
-    compressed-resident) streams exactly what the inflate path does, in the
-    port and in the reference, and meters the same bytes and page
-    counters."""
+@pytest.mark.parametrize("codec", ["int8", "fp8", "blocksparse"])
+def test_eviction_streams_and_traffic_match_reference(models, codec):
+    """An overcommitted pool (46 page evictions) with a tenant codec under
+    fair preemption, every codec through its pack/unpack kernels: the
+    in-place kernel path (cold int8-payload pages resume compressed-
+    resident) streams exactly what the inflate path does, in the port and
+    in the reference, and meters the same bytes and page counters."""
     jm, jp, tm, tp = models
     rng = np.random.default_rng(5)
     reqs = [(i, rng.integers(0, 512, size=(10,)).astype(np.int32), 10)
             for i in range(4)]
     kw = dict(batch=2, max_len=32, page_size=4, pages=10, spill="host")
     want, jrep = _jax_streams(jm, jp, reqs, scheduler=JFair(quantum=3),
-                              quota=JQuota(codec="int8"), **kw)
+                              quota=JQuota(codec=codec), **kw)
     off, trep = _streams(Engine, Request, tm, tp, reqs,
                          scheduler=FairScheduler(quantum=3),
-                         quota=TenantQuota(codec="int8"), **kw)
+                         quota=TenantQuota(codec=codec), **kw)
     on, krep = _streams(Engine, Request, tm, tp, reqs,
                         scheduler=FairScheduler(quantum=3),
-                        quota=TenantQuota(codec="int8"), decode_kernel=True,
+                        quota=TenantQuota(codec=codec), decode_kernel=True,
                         **kw)
     assert off == want
     assert on == want
     assert jrep["pages"]["evictions"] > 0
-    assert krep["decode_io"]["compressed_adopts"] > 0
+    # only int8 payloads fit the side pool the decode kernel reads
+    assert (krep["decode_io"]["compressed_adopts"] > 0) == (codec != "fp8")
     for key in ("kv_stash", "kv_fetch", "pages", "decode_io", "tier"):
         assert trep[key] == jrep[key], key
     assert krep["kv_stash"] == jrep["kv_stash"]
