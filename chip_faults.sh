@@ -15,7 +15,10 @@ MAIN='check_main_path_logits() check_paged(torch.device(0),{})'
 KERNEL='check_paged(torch.device(0),{})'
 FLASH='check_flash(torch.device(0),{}) check_train_flash_vs_plain()'
 CODEC='check_codec(torch.device(0),{},{})'
-SHOW='main path logits|paged_decode_attention (float|bfloat)|flash_attention_fwd (float|bfloat)|training, flash kernel vs plain|bit-exact|FAILED'
+SSD='check_ssd(torch.device(0),{},{})'
+SSD_SERVE="$SSD check_ssm_serve_logits()"
+SSD_TRAIN="$SSD check_train_ssd_vs_plain()"
+SHOW='main path logits|paged_decode_attention (float|bfloat)|flash_attention_fwd (float|bfloat)|training, |bit-exact|  ssd_scan (float|bfloat)|mamba2 logits|    (scan kernel|plain bf16)|FAILED'
 
 fault() {   # name, source file, sed expression, chip_smoke.py checks to run
   local dir=build/faults/$1 src=$CSRC/$2
@@ -64,3 +67,16 @@ fault flash_causal_shift flash_attention.cu \
 fault fp8_scale_reciprocal offload_pack.cu \
   's|fmaxf(absmax / 448.0f, 1e-12f)|fmaxf(absmax * (1.0f / 448.0f), 1e-12f)|' \
   "$CODEC"
+# SSD scan: the causal mask applied after the exp (exp of the unbounded
+# anti-causal entries overflows, and inf x 0 is NaN)
+fault ssd_mask_after_exp ssd_scan.cu \
+  's|out\[a\] = i >= j ? round_to<T>(acc\[a\]\[b\] \* expf(cum\[i\] - cum\[j\]))|out[a] = true ? (float)(i >= j) * round_to<T>(acc[a][b] * expf(cum[i] - cum[j]))|' \
+  "$SSD_SERVE"
+# SSD scan: the state carried from chunk to chunk without its decay
+fault ssd_no_chunk_decay ssd_scan.cu \
+  's/s = s \* decay + acc\[r\];/s = s + acc[r];/' \
+  "$SSD_TRAIN"
+# SSD scan: head h reads B / C of group h % G instead of h / (H / G)
+fault ssd_group_mod ssd_scan.cu \
+  's|const int g = h / (H / G);|const int g = h % G;|' \
+  "$SSD"

@@ -34,9 +34,26 @@ Phases (each failure exits non-zero; nothing is caught and carried on):
               version and on the kernel, and compares every loss and every
               step-1 gradient leaf; then 3 steps with the stash in pooled
               HBM through the blocksparse codec.
+6. serve    — serves full-width mamba2-370m (bf16, random weights from a
+   mamba2     seed) through ``repro_torch.launch.serve`` over monolithic
+              slots, fair preemption parking sessions' conv / ssm state
+              to pinned host memory: prompts of 320 tokens pad to three
+              scan chunks, decode runs at mixed lengths.  The whole path
+              runs twice, the SSD scan on its plain version and then on
+              the kernel, the second run emitting the first run's tokens,
+              and every sampled step's logits must agree; then once more
+              counted: every request finished, the scan launched once per
+              layer per admission, the spill's stash and fetch bytes equal.
+7. train    — trains full-width mamba2-370m for 10 steps of 8 x 1024
+   mamba2     tokens, every layer's input stashed through the fp8 codec to
+              pinned host memory: finite losses, the tier's bytes, the
+              launches a step (the scan twice a layer: forward and
+              recompute); profiles two more steps; then 3 steps twice,
+              scan plain against scan kernel, every loss and every step-1
+              gradient leaf compared.
 
 The line before the last is a JSON object with one entry per kernel (its
-launches summed over the counted runs of phases 4 and 5, and per run); the
+launches summed over the counted runs of phases 4 to 7, and per run); the
 last line is ``{"ok": true, "device": {...}}``.
 """
 import json
@@ -96,6 +113,53 @@ BLOCKSPARSE_ARGS = ["--arch", "smollm", "--device", "cuda", "--seed", "0",
 # 0.018 / 1.84 and the causal mask shifted by one 0.0063 / 12.6
 TRAIN_LOSS_ATOL = 1e-3
 TRAIN_GRAD_RTOL = 0.15
+
+# SSD scan, kernel against plain version on the same inputs, as max |d| over
+# max |want| of each output (y float32, final state in the input type):
+# float32 sums the same products in other orders; bfloat16 rounds the
+# scores, the decayed B / C and the state at the same places, so a sum
+# that lands on the other side of a rounding boundary moves by one ulp of
+# that value: the limit is one bf16 ulp of the largest output (2^-8).  On
+# an H100 (700 W) the worst of 7 cases read 4.5e-5 (f32) and 9.8e-4
+# (bf16); the group index h % G reads 1.21 and the missing chunk decay 0.27.
+SSD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -8}
+
+# mamba2 serving main path: full-width mamba2-370m, 16 requests of 320
+# prompt tokens (three 128-row scan chunks after padding) + 64 new over 8
+# monolithic slots of 512 rows, fair preemption every 16 tokens, cold
+# sessions' state to pinned host memory
+SSM_LAYERS = 48
+SSM_SERVE_ARGS = ["--arch", "mamba2-370m", "--device", "cuda", "--seed", "0",
+                  "--batch", "6", "--max-len", "512", "--requests", "16",
+                  "--prompt-len", "320", "--new-tokens", "64",
+                  "--scheduler", "fair", "--quantum", "16", "--spill", "host"]
+# every sampling call's logits of the scan kernel run against the plain
+# run, all runs on the first (plain, bfloat16) run's token streams.  In
+# float32 the two agree closely: on an H100 (700 W) 0.0025 max and 1.6e-4
+# worst-call mean over the 349 calls, |logits| up to 3.6.  In bfloat16 the
+# random 48-layer model amplifies rounding (0.98 / 0.125; the plain
+# version's bfloat16 run lies 2.80 / 0.417 from its float32 run), so the
+# bfloat16 kernel run is held to the distance bfloat16 itself puts between
+# the plain version's run and its float32 run on the same streams
+SSM_LOGIT_F32_TOL = (1e-2, 1e-3)
+# mamba2 training main path: 48 layers, 8 x 1024 tokens, host tier with the
+# fp8 stash codec
+SSM_TRAIN_STEPS = 10
+SSM_TRAIN_ARGS = ["--arch", "mamba2-370m", "--device", "cuda", "--seed", "0",
+                  "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+                  "--steps", str(SSM_TRAIN_STEPS), "--lr", "3e-4",
+                  "--policy", "host", "--compress", "fp8", "--log-every", "1"]
+# 3 training steps, scan kernel against its plain version from the same
+# weights and batches.  With the weights in float32, limits on every loss
+# and on every step-1 gradient leaf's |d| / |g| (2-norm; max / max reads
+# heads whose gradient cancels to near zero); on an H100 (700 W) they read
+# 0.0014 (losses after step 1, which reads 1e-6) and 0.035 (`dt_bias`);
+# the state carried without its chunk decay reads 0.012 and 0.68.  In
+# bfloat16 the gradients of this random model are rounding noise (the
+# plain version's bfloat16 and float32 runs lie 1.25 apart over all
+# leaves), so the kernel run is held to that distance: step 1's loss and
+# all gradient leaves at once
+SSM_TRAIN_F32_TOL = {"loss": 5e-3, "leaf_norm": 5e-2}
 
 
 def fail(msg: str) -> None:
@@ -445,6 +509,113 @@ def check_flash(dev, results):
         eager_ms=eager_ms(kernel, iters=20))
 
 
+def ssd_case(dev, dtype, b, S, H, G, seed, P=64, N=128, init=False):
+    """Inputs of the scan as ``mamba_block`` hands them over: x, B, C of
+    unit scale, dt = softplus(normal) in float32, A = -linspace(1, 16) (the
+    init's decays), an optional initial state."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    x, B, C = rnd(b, S, H, P), rnd(b, S, G, N), rnd(b, S, G, N)
+    dt = torch.nn.functional.softplus(rnd(b, S, H))
+    A = -torch.linspace(1.0, 16.0, H, device=dev)
+    s0 = (rnd(b, H, P, N) * 0.5).to(dtype) if init else None
+    return [t.to(dtype) for t in (x,)] + [dt, A] + \
+        [t.to(dtype) for t in (B, C)] + [s0]
+
+
+def ssd_bytes_ops(x, dt, B, init, chunk):
+    """Bytes the scan must move (x, dt, A, B, C and the initial state read
+    once, y float32 and the final state written once) and its operations
+    over the causal pairs only: per (b, h) and chunk c(c+1)(N+P) for the
+    scores and the intra-chunk product, 4cPN for the inter-chunk product
+    and the state update."""
+    b, S, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    c = min(chunk, S)
+    e = x.element_size()
+    nbytes = (x.numel() * e + dt.numel() * 4 + H * 4 + 2 * B.numel() * e
+              + (init.numel() * e if init is not None else 0)
+              + x.numel() * 4 + b * H * P * N * e)
+    ops = b * H * (S // c) * (c * (c + 1) * (N + P) + 4.0 * c * P * N)
+    return nbytes, ops
+
+
+def check_ssd(dev, results, others):
+    """The SSD scan against its plain version (``models/ssm.ssd_chunked``)
+    at both main-path shapes — training (8 x 1024 tokens, 32 heads, no
+    initial state) and serving prefill (one 320-token prompt padded to 384,
+    a zeroed state from the cache) — in float32 and bfloat16, with and
+    without an initial state, one and two groups, and a 1000-token batch
+    padded to 1024 as ``mamba_block`` pads it.  y and the final state,
+    each to ``SSD_RTOL`` of its largest magnitude.  Timed at both shapes in
+    bfloat16."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    F = torch.nn.functional
+    cases = [(8, 1024, 1, False), (8, 1024, 1, True), (8, 1024, 2, True),
+             (1, 384, 1, False), (1, 384, 1, True), (1, 384, 2, False),
+             (2, 1000, 1, True)]
+    max_err = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        worst = worst_abs = 0.0
+        for i, (b, S, G, init) in enumerate(cases):
+            x, dt, A, B, C, s0 = ssd_case(dev, dtype, b, S, 32, G, 20 + i,
+                                          init=init)
+            pad = (-S) % 128
+            if pad:           # zero rows, as mamba_block pads its inputs
+                x, B, C = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (x, B, C))
+                dt = F.pad(dt, (0, 0, 0, pad))
+            y, fin = ssd_scan(x, dt, A, B, C, 128, init_state=s0)
+            torch.cuda.synchronize()
+            wy, wfin = ref.ssd_chunked_ref(x, dt, A, B, C, 128,
+                                           init_state=s0)
+            for name, got, want in (("y", y, wy), ("final state", fin,
+                                                   wfin)):
+                if got.dtype != want.dtype or got.shape != want.shape:
+                    fail(f"ssd_scan {name}: {got.dtype} {tuple(got.shape)}, "
+                         f"plain {want.dtype} {tuple(want.shape)}")
+                if not torch.isfinite(got.float()).all():
+                    fail(f"ssd_scan {name} not finite ({b} x {S}, G {G})")
+                d = (got.float() - want.float()).abs().max().item()
+                e = d / want.float().abs().max().item()
+                print(f"    ssd_scan {str(dtype)[6:]} {b} x {S} G {G} init "
+                      f"{init}: {name} max |d| / max |want| {e:.3g}",
+                      flush=True)
+                if e > SSD_RTOL[dtype]:
+                    fail(f"ssd_scan {dtype} {b} x {S} G {G} init {init}: "
+                         f"{name} off by {e:.3g} of its scale > "
+                         f"{SSD_RTOL[dtype]}")
+                worst, worst_abs = max(worst, e), max(worst_abs, d)
+        max_err[dtype] = worst_abs
+        print(f"  ssd_scan {str(dtype)[6:]}: worst max |d| / max |want| "
+              f"{worst:.3g} (limit {SSD_RTOL[dtype]}) over {len(cases)} "
+              "cases, y and final state", flush=True)
+    for tag, (b, S) in (("train", (8, 1024)), ("prefill", (1, 384))):
+        x, dt, A, B, C, _ = ssd_case(dev, torch.bfloat16, b, S, 32, 1, 40)
+
+        def kernel():
+            return ssd_scan(x, dt, A, B, C, 128)
+
+        nbytes, ops = ssd_bytes_ops(x, dt, B, None, 128)
+        b_ms, b_by = bound_ms(nbytes, ops, PEAK_BF16_FLOPS)
+        row = dict(
+            route="cuda", source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+            replaces="src/repro/kernels/ssd_scan.py:85",
+            max_abs_err=max_err[torch.bfloat16],
+            ms=device_ms(kernel, iters=20),
+            plain_ms=device_ms(lambda: ref.ssd_chunked_ref(x, dt, A, B, C,
+                                                           128), iters=3),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            eager_ms=eager_ms(kernel, iters=20))
+        if tag == "train":
+            results["ssd_scan"] = row
+        else:
+            others["ssd_scan@prefill"] = row
+
+
 # ---------------------------------------------------------------------------
 def main_path_logits(impl: str, forced=None):
     """Drive the main path's engine (fresh model from the same seed) with
@@ -526,10 +697,11 @@ def kernel_counters():
     from repro_torch.kernels import offload_pack as kp
     from repro_torch.kernels.flash_attention import flash_attention_fwd
     from repro_torch.kernels.paged_attention import paged_decode_attention
+    from repro_torch.kernels.ssd_scan import ssd_scan
     return {"paged_decode_attention": paged_decode_attention,
             "int8_pack": kp.int8_pack, "fp8_unpack": kp.fp8_unpack,
             "fp8_pack": kp.fp8_pack, "blocksparse_pack": kp.blocksparse_pack,
-            "flash_attention_fwd": flash_attention_fwd}
+            "flash_attention_fwd": flash_attention_fwd, "ssd_scan": ssd_scan}
 
 
 def counted(run):
@@ -571,59 +743,61 @@ def check_serve_main_path():
     return launches
 
 
-def check_train_main_path():
-    """Phase 5's counted run: 20 full-width training steps, host tier, fp8
-    stash codec.  Losses finite and falling, the tier's traffic exact,
-    each kernel launched its expected number of times a step."""
+def check_train_path(label, argv, layers, steps, per_step,
+                     require_fall=True):
+    """A counted training run through ``repro_torch.launch.train``:
+    ``steps`` full-width steps, host tier, fp8 stash codec.  Losses
+    finite (and falling with ``require_fall``), the tier's traffic exact,
+    each kernel of ``per_step`` launched that many times a step."""
     from repro_torch.launch import train as train_cli
-    out, launches = counted(lambda: train_cli.main(TRAIN_ARGS))
-    print(f"  launches on the training path: {launches}", flush=True)
+    out, launches = counted(lambda: train_cli.main(argv))
+    print(f"  launches on the {label} path: {launches}", flush=True)
     hist = out["history"]
     losses = [h["loss"] for h in hist]
-    if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
-        fail(f"training losses not finite or missing: {losses}")
-    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
-    print(f"  losses: first 5 mean {first:.4f}, last 5 mean {last:.4f} "
-          f"({losses[0]:.4f} -> {losses[-1]:.4f})", flush=True)
-    if not last < first:
-        fail(f"training loss did not fall: {losses}")
+    if len(losses) != steps or not all(map(math.isfinite, losses)):
+        fail(f"{label} losses not finite or missing: {losses}")
+    k = min(5, steps // 2)
+    first, last = sum(losses[:k]) / k, sum(losses[-k:]) / k
+    print(f"  losses: first {k} mean {first:.4f}, last {k} mean {last:.4f} "
+          f"({losses[0]:.4f} -> {losses[-1]:.4f}): "
+          f"{[round(x, 4) for x in losses]}", flush=True)
+    if require_fall and not last < first:
+        fail(f"{label} loss did not fall: {losses}")
     report = out["model"].runtime.traffic_report()
     d_model = out["model"].cfg.d_model
-    raw = TRAIN_LAYERS * TRAIN_BATCH * TRAIN_SEQ * d_model * 2 * TRAIN_STEPS
+    raw = layers * TRAIN_BATCH * TRAIN_SEQ * d_model * 2 * steps
     for d in ("stash", "fetch"):
         r = report.get(d, {})
         if r.get("raw_bytes") != raw or r.get("wire_bytes") != raw / 2 \
-                or r.get("calls") != TRAIN_LAYERS * TRAIN_STEPS:
+                or r.get("calls") != layers * steps:
             fail(f"memory traffic {d}: {r}; want {raw} raw bytes, half of "
-                 f"them on the wire, {TRAIN_LAYERS * TRAIN_STEPS} calls")
+                 f"them on the wire, {layers * steps} calls")
     print(f"  memory traffic: {out['model'].runtime.traffic_summary()}; "
           f"stash and fetch raw {raw} B each, wire half", flush=True)
-    want = {"fp8_pack": TRAIN_LAYERS, "fp8_unpack": TRAIN_LAYERS,
-            "flash_attention_fwd": 2 * TRAIN_LAYERS}
-    for name, per_step in want.items():
-        if launches[name] != per_step * TRAIN_STEPS:
+    for name, n in per_step.items():
+        if launches[name] != n * steps:
             fail(f"kernel {name} launched {launches[name]} times in "
-                 f"{TRAIN_STEPS} steps; want {per_step} a step")
+                 f"{steps} steps; want {n} a step")
     ms = sorted(h["ms"] for h in hist[1:])
     step_ms = ms[len(ms) // 2]
-    print(f"  step time: median {step_ms:.1f} ms over steps 2-"
-          f"{TRAIN_STEPS} (first step {hist[0]['ms']:.1f} ms), "
+    print(f"  step time: median {step_ms:.1f} ms over steps 2-{steps} "
+          f"(first step {hist[0]['ms']:.1f} ms), "
           f"{TRAIN_BATCH * TRAIN_SEQ / step_ms * 1e3:.0f} tokens/s",
           flush=True)
     return out, launches
 
 
-def profile_train_steps(out, n: int = 2):
-    """Device time of ``n`` more steps of the trained state under
-    torch.profiler: busy and idle share, the stash/fetch copies' share,
-    and the kernels that take the most time."""
+def profile_train_steps(out, start: int, n: int = 2):
+    """Device time of ``n`` more steps of the trained state (batches from
+    ``start`` on) under torch.profiler: busy and idle share, the
+    stash/fetch copies' share, and the kernels that take the most time."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.data.pipeline import to_device
     from repro_torch.train.loop import make_train_step
     model, tc, source, state = (out[k] for k in ("model", "tc", "source",
                                                  "state"))
     step = make_train_step(model, tc)
-    batches = [to_device(source.batch_at(TRAIN_STEPS + t), model.device)
+    batches = [to_device(source.batch_at(start + t), model.device)
                for t in range(n + 1)]
     state, _ = step(state, batches[0])
     torch.cuda.synchronize()
@@ -659,20 +833,22 @@ def profile_train_steps(out, n: int = 2):
               flush=True)
 
 
-def train_steps_with(impl: str, n: int = 3):
-    """``n`` full-width training steps from the main path's weights and
-    batches with the flash forward on ``impl``; returns the losses and the
-    first step's gradients."""
+def train_steps_with(argv, kind: str, impl: str, n: int = 3, dtype=None):
+    """``n`` full-width training steps of the run ``argv`` describes (its
+    weights in ``dtype`` if given), from its weights and batches, with the
+    ``kind`` kernel ("flash" or "ssd") on ``impl``; returns the losses and
+    the first step's gradients."""
     from repro_torch.data.pipeline import to_device
     from repro_torch.kernels import ops
     from repro_torch.launch import train as train_cli
     from repro_torch.train.loop import grads_of
     from repro_torch.train.optimizer import apply_adamw
     from repro_torch.train.train_state import init_state
-    ops.set_flash_impl(impl)
+    select = getattr(ops, f"set_{kind}_impl")
+    select(impl)
     try:
-        model, tc, source = train_cli.build_run(
-            train_cli.parse_args(TRAIN_ARGS))
+        model, tc, source = train_cli.build_run(train_cli.parse_args(argv),
+                                                dtype=dtype)
         state = init_state(model, tc)
         losses, first = [], None
         for t in range(n):
@@ -684,35 +860,89 @@ def train_steps_with(impl: str, n: int = 3):
                                              tc)
             losses.append(float(m["loss"]))
     finally:
-        ops.set_flash_impl("cuda")
+        select("cuda")
     torch.cuda.synchronize()
     return losses, first
 
 
-def check_train_flash_vs_plain() -> None:
-    """The training path with the flash forward on its plain version, then
-    on the kernel, from the same weights and batches: each step's loss and
-    every gradient leaf of step 1."""
+def train_gap(got, want, label):
+    """How far two ``train_steps_with`` results lie apart; prints it.
+    Returns ``loss`` (max |d loss| over the steps), ``loss1`` (step 1's,
+    from identical weights), ``leaf`` (the worst step-1 gradient leaf's
+    max |d| / max |g|), ``leaf_norm`` (the worst leaf's |d| / |g| in the
+    2-norm) and ``norm`` (|d| / |g| over all leaves at once)."""
     from repro_torch import tree
-    want_l, want_g = train_steps_with("torch")
-    got_l, got_g = train_steps_with("cuda")
-    loss_err = max(abs(a - b) for a, b in zip(got_l, want_l))
-    worst, worst_path = 0.0, None
+    (got_l, got_g), (want_l, want_g) = got, want
+    gap = {"loss": max(abs(a - b) for a, b in zip(got_l, want_l)),
+           "loss1": abs(got_l[0] - want_l[0]), "leaf": 0.0,
+           "leaf_norm": 0.0}
+    where = {}
+    d2 = g2 = 0.0
     leaves_w, paths = tree.flatten(want_g)
     for w, g, path in zip(leaves_w, tree.leaves(got_g), paths):
         if not torch.isfinite(g.float()).all():
             fail(f"gradient {'/'.join(path)} not finite")
-        scale = w.float().abs().max().item() or 1.0
-        rel = (g.float() - w.float()).abs().max().item() / scale
-        if rel > worst:
-            worst, worst_path = rel, "/".join(path)
-    print(f"  training, flash kernel vs plain, 3 steps: losses "
+        w, d = w.float(), (g.float() - w.float())
+        dn, wn = d.norm().item(), w.norm().item()
+        d2, g2 = d2 + dn ** 2, g2 + wn ** 2
+        for key, val in (("leaf", d.abs().max().item()
+                          / (w.abs().max().item() or 1.0)),
+                         ("leaf_norm", dn / (wn or 1.0))):
+            if val > gap[key]:
+                gap[key], where[key] = val, "/".join(path)
+    gap["norm"] = (d2 / g2) ** 0.5 if g2 else 0.0
+    print(f"  training, {label}, 3 steps: losses "
           f"{[round(x, 5) for x in got_l]} vs {[round(x, 5) for x in want_l]}"
-          f", max |d loss| {loss_err:.3g} (tol {TRAIN_LOSS_ATOL}); step 1 "
-          f"gradients: worst leaf {worst_path} max |d| / max |g| "
-          f"{worst:.3g} (tol {TRAIN_GRAD_RTOL})", flush=True)
-    if loss_err > TRAIN_LOSS_ATOL or worst > TRAIN_GRAD_RTOL:
-        fail("training with the flash kernel disagrees with the plain "
+          f", max |d loss| {gap['loss']:.3g} (step 1 {gap['loss1']:.3g}); "
+          f"step 1 gradients: worst leaf {where.get('leaf')} max |d| / max "
+          f"|g| {gap['leaf']:.3g}, worst leaf {where.get('leaf_norm')} |d| / "
+          f"|g| {gap['leaf_norm']:.3g}, all leaves |d| / |g| "
+          f"{gap['norm']:.3g}", flush=True)
+    return gap
+
+
+def check_train_kernel_vs_plain(argv, kind, label, loss_tol, grad_tol):
+    """The training path with the ``kind`` kernel on its plain version,
+    then on the kernel, from the same weights and batches: each step's
+    loss and every gradient leaf of step 1."""
+    gap = train_gap(train_steps_with(argv, kind, "cuda"),
+                    train_steps_with(argv, kind, "torch"),
+                    f"{label} kernel vs plain")
+    print(f"    limits: {loss_tol} on the losses, {grad_tol} on the worst "
+          "leaf's max |d| / max |g|", flush=True)
+    if gap["loss"] > loss_tol or gap["leaf"] > grad_tol:
+        fail(f"training with the {label} kernel disagrees with the plain "
+             "version")
+
+
+def check_train_flash_vs_plain() -> None:
+    check_train_kernel_vs_plain(TRAIN_ARGS, "flash", "flash",
+                                TRAIN_LOSS_ATOL, TRAIN_GRAD_RTOL)
+
+
+def check_train_ssd_vs_plain() -> None:
+    """Phase 7's comparison: 3 mamba2 steps from the same weights and
+    batches, scan kernel against plain version, with the weights in
+    float32 (limits ``SSM_TRAIN_F32_TOL``) and in bfloat16 (held to the
+    distance between the plain version's bfloat16 and float32 runs)."""
+    runs = {(dtype, impl): train_steps_with(SSM_TRAIN_ARGS, "ssd", impl,
+                                            dtype=dtype)
+            for dtype in ("float32", "bfloat16") for impl in ("torch", "cuda")}
+    f32 = train_gap(runs["float32", "cuda"], runs["float32", "torch"],
+                    "SSD scan kernel vs plain, float32")
+    bf16 = train_gap(runs["bfloat16", "cuda"], runs["bfloat16", "torch"],
+                     "SSD scan kernel vs plain, bfloat16")
+    rounding = train_gap(runs["bfloat16", "torch"], runs["float32", "torch"],
+                         "plain bf16 vs plain f32")
+    print(f"    limits: float32 {SSM_TRAIN_F32_TOL}; bfloat16 step-1 loss "
+          f"<= {rounding['loss1']:.3g} and all leaves <= "
+          f"{rounding['norm']:.3g} (plain bf16 vs plain f32)", flush=True)
+    if any(f32[k] > tol for k, tol in SSM_TRAIN_F32_TOL.items()):
+        fail("training with the SSD scan kernel (float32) disagrees with "
+             "the plain version")
+    if bf16["loss1"] > rounding["loss1"] or bf16["norm"] > rounding["norm"]:
+        fail("training with the SSD scan kernel (bfloat16): the kernel "
+             "moves it further than bfloat16 rounding moves the plain "
              "version")
 
 
@@ -735,6 +965,135 @@ def check_blocksparse_path():
     return launches
 
 
+# ---------------------------------------------------------------------------
+def ssm_serve_logits(impl: str, dtype: str, forced=None):
+    """Drive the mamba2 serving path (fresh model from the same seed, its
+    weights in ``dtype``) with the SSD scan on ``impl``.  Returns the
+    logits and tokens of every sampling call (after each admission's
+    prefill and each decode step) and how many engine steps decoded at
+    more than one length.  With ``forced`` (another run's tokens, per
+    call) the engine emits those."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    args = serve.parse_args(SSM_SERVE_ARGS)
+    calls, stats = [], {"steps": 0, "mixed": 0, "decodes": 0}
+    ops.set_ssd_impl(impl)
+    try:
+        eng = serve.build_engine(args, dtype=dtype)
+        decode, sample, step = eng._decode, eng._sample, eng.step
+
+        def spy_sample(logits):
+            toks = sample(logits) if forced is None else forced[len(calls)]
+            if len(toks) != logits.shape[0]:
+                fail("the forced run left the first run's schedule")
+            calls.append((logits.float(), toks))
+            return toks
+
+        def spy_decode(tok, length, mask):
+            stats["decodes"] += 1
+            return decode(tok, length, mask)
+
+        def spy_step():
+            before = stats["decodes"]
+            n = step()
+            stats["steps"] += 1
+            stats["mixed"] += stats["decodes"] - before > 1
+            return n
+
+        eng._decode, eng._sample, eng.step = spy_decode, spy_sample, spy_step
+        serve.submit_requests(eng, args, {})
+        eng.run()
+    finally:
+        ops.set_ssd_impl("cuda")
+    torch.cuda.synchronize()
+    return calls, stats
+
+
+def logit_gap(got, want):
+    """(max |d|, worst call's mean |d|, rows whose argmax agrees) of two
+    runs' sampling calls."""
+    err = mean = 0.0
+    agree = rows = 0
+    for (g, _), (w, toks) in zip(got, want):
+        if not torch.isfinite(g).all():
+            fail("mamba2 serving logits are not finite")
+        d = (g - w).abs()
+        err, mean = max(err, d.max().item()), max(mean, d.mean().item())
+        agree += int((g.argmax(-1) == w.argmax(-1)).sum())
+        rows += len(toks)
+    return err, mean, f"{agree}/{rows}"
+
+
+def check_ssm_serve_logits() -> None:
+    """Phase 6: the mamba2 serving path with the scan kernel against the
+    same path with the scan's plain version, every sampling call, in
+    bfloat16 (the main path) and with the weights in float32; every run
+    after the first is forced onto the first's tokens."""
+    base, stats = ssm_serve_logits("torch", "bfloat16")
+    forced = [t for _, t in base]
+    runs = {("bfloat16", "torch"): base}
+    for key in (("bfloat16", "cuda"), ("float32", "torch"),
+                ("float32", "cuda")):
+        runs[key] = ssm_serve_logits(key[1], key[0], forced)[0]
+        if len(runs[key]) != len(base):
+            fail(f"run {key} made {len(runs[key])} sampling calls, the "
+                 f"first {len(base)}")
+    gaps = {"float32": logit_gap(runs["float32", "cuda"],
+                                 runs["float32", "torch"]),
+            "bfloat16": logit_gap(runs["bfloat16", "cuda"], base),
+            "bfloat16 rounding": logit_gap(base, runs["float32", "torch"])}
+    top = max(w.abs().max().item() for w, _ in base)
+    print(f"  mamba2 logits over {len(base)} sampling calls "
+          f"({stats['decodes']} decode calls in {stats['steps']} engine "
+          f"steps, {stats['mixed']} steps at mixed lengths), |logits| max "
+          f"{top:.3g}:", flush=True)
+    for name, (err, mean, agree) in gaps.items():
+        what = ("plain bf16 vs plain f32" if name == "bfloat16 rounding"
+                else f"scan kernel vs plain, {name}")
+        print(f"    {what}: max abs err {err:.4g}, worst call's mean "
+              f"{mean:.3g}, argmax agreement {agree}", flush=True)
+    if stats["mixed"] == 0:
+        fail("no engine step decoded at mixed lengths")
+    err, mean, _ = gaps["float32"]
+    if err > SSM_LOGIT_F32_TOL[0] or mean > SSM_LOGIT_F32_TOL[1]:
+        fail(f"mamba2 serving logits (float32) disagree with the plain "
+             f"version beyond {SSM_LOGIT_F32_TOL}")
+    if any(a > b for a, b in zip(gaps["bfloat16"][:2],
+                                 gaps["bfloat16 rounding"][:2])):
+        fail("mamba2 serving logits (bfloat16): the kernel moves them "
+             "further than bfloat16 rounding moves the plain version")
+
+
+def check_ssm_serve_main_path():
+    """Phase 6's counted run: every request finishes, the scan launches
+    once per layer per admission, parked state comes back byte for byte."""
+    from repro_torch.launch import serve
+    eng, launches = counted(lambda: serve.main(SSM_SERVE_ARGS))
+    print(f"  launches on the mamba2 serving path: {launches}", flush=True)
+    sessions = eng.sessions
+    if len(sessions) != 16 or any(s.finish_reason != "length"
+                                  or len(s.result()) != 64
+                                  for s in sessions):
+        fail("not every request finished with 64 tokens: " + str(
+            [(s.uid, s.finish_reason, len(s.result())) for s in sessions]))
+    # the reference samples greedily over the whole padded table (50432
+    # rows for a 50280-token vocabulary), and so does the port
+    vocab = eng.model.cfg.padded_vocab
+    if any(not 0 <= t < vocab for s in sessions for t in s.result()):
+        fail("a generated token lies outside the padded vocabulary")
+    if launches["ssd_scan"] != SSM_LAYERS * len(sessions):
+        fail(f"ssd_scan launched {launches['ssd_scan']} times for "
+             f"{len(sessions)} admissions; want {SSM_LAYERS} each")
+    report = eng.traffic_report()
+    stash, fetch = report.get("kv_stash", {}), report.get("kv_fetch", {})
+    print(f"  spill: stash {stash}, fetch {fetch}; preemptions "
+          f"{sum(s.preemptions for s in sessions)}", flush=True)
+    if not stash.get("calls") or any(stash.get(k) != fetch.get(k)
+                                     for k in ("wire_bytes", "calls")):
+        fail("the mamba2 spill did not move equal stash and fetch bytes")
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a GPU")
@@ -747,8 +1106,13 @@ def main() -> None:
     kind = torch.cuda.get_device_name(0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
 
-    print("== phase 1: device", flush=True)
+    def phase(title):
+        print(f"== {title} (at {time.perf_counter() - t_start:.0f} s)",
+              flush=True)
+
+    phase("phase 1: device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
@@ -759,7 +1123,7 @@ def main() -> None:
           f"python {sys.version.split()[0]} device {kind} ({card})",
           flush=True)
 
-    print("== phase 2: build", flush=True)
+    phase("phase 2: build")
     t0 = time.perf_counter()
     built = build.build()
     for name, info in built.items():
@@ -770,11 +1134,12 @@ def main() -> None:
     print(f"  build: {time.perf_counter() - t0:.1f}s wall "
           f"({len(built)} libraries)", flush=True)
 
-    print("== phase 3: kernels against their plain versions", flush=True)
+    phase("phase 3: kernels against their plain versions")
     results, others = {}, {}
     check_paged(dev, results)
     check_codec(dev, results, others)
     check_flash(dev, results)
+    check_ssd(dev, results, others)
     for name, r in list(results.items()) + list(others.items()):
         lib = "-" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         print(f"  {name}: {r['ms']:.4f} ms on the card (eager call "
@@ -782,19 +1147,36 @@ def main() -> None:
               f"library {lib} ms, bound {r['bound_ms']:.6f} ms "
               f"({r['bound_by']})", flush=True)
 
-    print("== phase 4: serving main path (full-width smollm-135m, bf16)",
-          flush=True)
+    phase("phase 4: serving main path (full-width smollm-135m, bf16)")
     check_main_path_logits()
     by_path = {"serve": check_serve_main_path()}
 
-    print("== phase 5: training main path (full-width smollm-135m, bf16, "
-          f"batch {TRAIN_BATCH} x {TRAIN_SEQ}, host tier, fp8 stash)",
-          flush=True)
-    out, by_path["train"] = check_train_main_path()
-    profile_train_steps(out)
+    phase(f"phase 5: training main path (full-width smollm-135m, bf16, "
+          f"batch {TRAIN_BATCH} x {TRAIN_SEQ}, host tier, fp8 stash)")
+    out, by_path["train"] = check_train_path(
+        "training", TRAIN_ARGS, TRAIN_LAYERS, TRAIN_STEPS,
+        {"fp8_pack": TRAIN_LAYERS, "fp8_unpack": TRAIN_LAYERS,
+         "flash_attention_fwd": 2 * TRAIN_LAYERS})
+    profile_train_steps(out, TRAIN_STEPS)
     del out
     check_train_flash_vs_plain()
     by_path["train_blocksparse"] = check_blocksparse_path()
+
+    phase("phase 6: serving main path (full-width mamba2-370m, bf16, "
+          "monolithic slots, host spill)")
+    check_ssm_serve_logits()
+    by_path["serve_mamba2"] = check_ssm_serve_main_path()
+
+    phase(f"phase 7: training main path (full-width mamba2-370m, bf16, "
+          f"batch {TRAIN_BATCH} x {TRAIN_SEQ}, host tier, fp8 stash)")
+    out, by_path["train_mamba2"] = check_train_path(
+        "mamba2 training", SSM_TRAIN_ARGS, SSM_LAYERS, SSM_TRAIN_STEPS,
+        {"fp8_pack": SSM_LAYERS, "fp8_unpack": SSM_LAYERS,
+         "ssd_scan": 2 * SSM_LAYERS}, require_fall=False)
+    profile_train_steps(out, SSM_TRAIN_STEPS)
+    del out
+    check_train_ssd_vs_plain()
+    phase("done")
 
     rows = []
     for name, r in results.items():

@@ -13,9 +13,11 @@ from typing import Any, Optional, Union
 import numpy as np
 import torch
 
-#: norm parameters stay float32 whatever the model dtype (as in the
-#: reference, whose norm init is float32)
-NORM_KEYS = ("ln1", "ln2", "ln_x", "final_norm")
+#: subtrees and leaves that stay float32 whatever the model dtype, as the
+#: reference initialises them: the norms and the Mamba2 block's decay,
+#: skip, step bias and gated-norm scale (``repro/models/ssm.mamba_init``)
+F32_KEYS = ("ln1", "ln2", "ln_x", "final_norm",
+            "A_log", "D", "dt_bias", "norm_scale")
 
 
 def _to_tensor(a: Any, device, dtype: Optional[torch.dtype],
@@ -32,14 +34,14 @@ def _to_tensor(a: Any, device, dtype: Optional[torch.dtype],
 
 def params_from_jax(tree: Any, device: Union[str, torch.device],
                     dtype: Optional[torch.dtype] = None,
-                    _in_norm: bool = False) -> Any:
+                    _keep_f32: bool = False) -> Any:
     """The port's parameters from the reference's tree of numpy arrays, on
     ``device`` (``"cuda"`` or ``"cpu"``: no default, no fallback).
 
     ``dtype`` (None: keep each leaf's) casts the floating leaves outside
-    the norms."""
+    ``F32_KEYS``."""
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device, dtype,
-                                   _in_norm or k in NORM_KEYS)
+                                   _keep_f32 or k in F32_KEYS)
                 for k, v in tree.items()}
-    return _to_tensor(tree, device, dtype, _in_norm)
+    return _to_tensor(tree, device, dtype, _keep_f32)

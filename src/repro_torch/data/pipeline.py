@@ -32,7 +32,7 @@ class SyntheticLM:
     def __init__(self, cfg: ModelConfig, batch: int, seq: int, seed: int = 0):
         if cfg.frontend != "none":
             raise NotImplementedError(
-                f"{cfg.name}: frontend frames / patches port with slice 3")
+                f"{cfg.name}: frontend frames / patches port with slice 3d")
         self.cfg, self.batch, self.seq = cfg, batch, seq
         self.seed = seed
         self.step = 0

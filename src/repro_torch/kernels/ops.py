@@ -1,13 +1,13 @@
-"""Dispatch of the attention kernels between their implementations.
+"""Dispatch of the model's kernels between their implementations.
 
 Registry flags (not bools) so backends stay pluggable: the serving stack
-routes through :func:`paged_attention` and training attention through
-:func:`flash_attention`, and the active implementation is swapped without
-touching the call sites.
+routes through :func:`paged_attention`, training attention through
+:func:`flash_attention` and the Mamba2 blocks through :func:`ssd`, and the
+active implementation is swapped without touching the call sites.
 
 * ``"cuda"``  — the hand-written kernel (``kernels/paged_attention.py``,
-  ``kernels/flash_attention.py``); a CPU tensor takes the kernel's plain
-  version there, a CUDA tensor the kernel.
+  ``kernels/flash_attention.py``, ``kernels/ssd_scan.py``); a CPU tensor
+  takes the kernel's plain version there, a CUDA tensor the kernel.
 * ``"torch"`` — the plain version on any device (the yardstick the kernel
   is held against on the card).
 """
@@ -20,6 +20,7 @@ import torch
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import ref as kref
+from repro_torch.kernels import ssd_scan as ss
 
 PAGED_IMPLS = ("cuda", "torch")
 _PAGED_IMPL = {"default": "cuda"}
@@ -104,3 +105,62 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0):
     forward (kernel or plain); backward recomputes through the blockwise
     twin (the same math)."""
     return _FlashAttention.apply(q, k, v, causal, window)
+
+
+# ---------------------------------------------------------------------------
+SSD_IMPLS = ("cuda", "torch")
+_SSD_IMPL = {"default": "cuda"}
+
+
+def set_ssd_impl(name: str) -> None:
+    """Select the SSD chunked scan ('cuda' kernel / 'torch' plain)."""
+    if name not in SSD_IMPLS:
+        raise ValueError(f"unknown SSD scan impl {name!r}; "
+                         f"registered: {SSD_IMPLS}")
+    _SSD_IMPL["default"] = name
+
+
+class _SSDScan(torch.autograd.Function):
+    """Kernel forward, backward recomputed through the plain version.
+
+    The reference's model runs the scan as plain XLA (``ssd_chunked``) and
+    its Pallas scan has no backward, so the gradient here is plain
+    PyTorch autograd through ``models/ssm.ssd_chunked`` by design."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, init_state, chunk: int):
+        ctx.save_for_backward(x, dt, A, B, C, init_state)
+        ctx.chunk = chunk
+        scan = (kref.ssd_chunked_ref if _SSD_IMPL["default"] == "torch"
+                else ss.ssd_scan)
+        return scan(x, dt, A, B, C, chunk, init_state=init_state)
+
+    @staticmethod
+    def backward(ctx, gy, gfin):
+        inputs = ctx.saved_tensors
+        with torch.enable_grad():
+            inputs = [None if t is None else
+                      t.detach().requires_grad_(need)
+                      for t, need in zip(inputs, ctx.needs_input_grad)]
+            y, fin = kref.ssd_chunked_ref(*inputs[:5], ctx.chunk,
+                                          init_state=inputs[5])
+            wanted = [t for t in inputs if t is not None and t.requires_grad]
+            outs, grads = [y], [gy]
+            if gfin is not None:
+                outs.append(fin)
+                grads.append(gfin)
+            got = iter(torch.autograd.grad(outs, wanted, grads,
+                                           allow_unused=True))
+        return tuple(next(got) if t is not None and t.requires_grad
+                     else None for t in inputs) + (None,)
+
+
+def ssd(x, dt, A, B, C, chunk: int, init_state=None):
+    """The SSD chunked scan of ``models/ssm.ssd_chunked`` on the active
+    implementation: (y (b, S, H, P) float32, final state (b, H, P, N)).
+    Views are made contiguous for the kernel; backward recomputes through
+    the plain version."""
+    x, B, C, dt = (t.contiguous() for t in (x, B, C, dt))
+    if init_state is not None:
+        init_state = init_state.contiguous()
+    return _SSDScan.apply(x, dt, A, B, C, init_state, chunk)

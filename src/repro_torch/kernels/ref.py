@@ -133,3 +133,33 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o = blockwise_attention(q.transpose(1, 2), k.transpose(1, 2),
                             v.transpose(1, 2), causal=causal, window=window)
     return o.transpose(1, 2)
+
+
+# ---------------------------------------------------------------------------
+def ssd_chunked_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                    B: torch.Tensor, C: torch.Tensor, chunk: int,
+                    init_state: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain twin of the SSD scan kernel: ``models/ssm.ssd_chunked`` (what
+    the reference's model runs in place of its Pallas scan)."""
+    from repro_torch.models.ssm import ssd_chunked
+    return ssd_chunked(x, dt, A, B, C, chunk, init_state=init_state)
+
+
+def ssd_ref(x: torch.Tensor, a: torch.Tensor, B: torch.Tensor,
+            C: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Single-(batch, head) SSD recurrence oracle (the reference's
+    ``kernels/ref.ssd_ref``).
+
+    x: (S, P) inputs (already dt-scaled), a: (S,) log-decay per step,
+    B / C: (S, N).  Returns (y (S, P) in x's dtype, final state (P, N)
+    float32)."""
+    S, P = x.shape
+    state = torch.zeros((P, B.shape[1]), dtype=torch.float32,
+                        device=x.device)
+    ys = []
+    for t in range(S):
+        state = state * torch.exp(a[t].float()) \
+            + torch.outer(x[t].float(), B[t].float())
+        ys.append(state @ C[t].float())
+    return torch.stack(ys).to(x.dtype), state

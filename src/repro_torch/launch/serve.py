@@ -22,8 +22,10 @@ synthetic requests over N tenant names.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import logging
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -88,11 +90,15 @@ def parse_args(argv=None) -> argparse.Namespace:
     return args
 
 
-def build_engine(args: argparse.Namespace) -> Engine:
-    """The model (random weights from ``--seed``) behind its engine."""
+def build_engine(args: argparse.Namespace,
+                 dtype: Optional[str] = None) -> Engine:
+    """The model (random weights from ``--seed``) behind its engine;
+    ``dtype`` (e.g. "float32") overrides the configuration's."""
     cfg = get_arch(args.arch)
     if args.smoke:
         cfg = cfg.reduced()
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
     shape = ShapeConfig("serve", args.max_len or 128, args.batch or 4,
                         "decode")
     model = build_model(RunConfig(model=cfg, shape=shape,

@@ -15,9 +15,10 @@ The reference's ``--ckpt-*``, ``--chaos``, ``--pipeline*`` and
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import logging
 import sys
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 from repro_torch.configs import (MemoryPlan, RunConfig, SHAPES_BY_NAME,
                                  TrainConfig, get_arch)
@@ -55,10 +56,13 @@ def parse_args(argv=None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def build_run(args: argparse.Namespace) -> Tuple[Model, TrainConfig,
-                                                 SyntheticLM]:
-    """The model, its train config and its data stream for ``args``."""
+def build_run(args: argparse.Namespace, dtype: Optional[str] = None
+              ) -> Tuple[Model, TrainConfig, SyntheticLM]:
+    """The model, its train config and its data stream for ``args``;
+    ``dtype`` (e.g. "float32") overrides the configuration's."""
     cfg = get_arch(args.arch)
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
     if args.smoke:
         cfg = cfg.reduced()
         batch, seq = args.batch or 4, args.seq or 128

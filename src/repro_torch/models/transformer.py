@@ -1,12 +1,15 @@
-"""Layer stacks: the dense decoder path and the paged-KV helpers.
+"""Layer stacks: the dense decoder and Mamba2 (SSM) paths and the paged-KV
+helpers.
 
 The parameter tree is the reference's: ``embed``, ``final_norm`` and
-``groups/sub_j/{ln1, attn/{wq,wk,wv,wo}, ln2, mlp/{w1,w2,w3}}`` with every
-group leaf stacked on a leading layer axis and weights stored
-``(d_in, d_out)``.  A Python loop over the stacked layer axis replaces the
-reference's ``lax.scan``.  This slice ports the dense family (smollm,
-h2o-danube, command-r, starcoder2); the MoE, SSM/hybrid and
-encoder-decoder branches come with later slices.
+``groups/sub_j/...`` with every group leaf stacked on a leading layer axis
+and weights stored ``(d_in, d_out)``; a dense sub-layer holds ``{ln1,
+attn/{wq,wk,wv,wo}, ln2, mlp/{w1,w2,w3}}``, an SSM sub-layer ``{ln1,
+ssm/{in_proj, conv_w, conv_b, A_log, D, dt_bias, norm_scale, out_proj}}``.
+A Python loop over the stacked layer axis replaces the reference's
+``lax.scan``.  Ported so far: the dense family (smollm, h2o-danube,
+command-r, starcoder2) and the pure SSM family (mamba2); the hybrid, MoE
+and encoder-decoder branches come with later slices.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ import torch
 
 from repro_torch import tree
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import (attention_block, attn_init,
                                           init_kv_cache)
 from repro_torch.models.layers import (ModelContext, activation_fn,
@@ -43,13 +47,24 @@ def arch_group(cfg: ModelConfig) -> Tuple[Tuple[str, ...], int]:
     return ("dense",), cfg.num_layers
 
 
-def _require_dense(cfg: ModelConfig) -> None:
+def _require_ported(cfg: ModelConfig) -> None:
+    """Admit the families ported so far (dense decoders, pure SSM); name
+    the slice that ports each of the others."""
     group, _ = arch_group(cfg)
-    if group != ("dense",) or cfg.is_encoder_decoder \
-            or cfg.frontend != "none":
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}): only the dense decoder family is "
-            "ported so far")
+    if cfg.is_encoder_decoder or cfg.frontend != "none":
+        later = "the encoder-decoder / VLM slice 3d"
+    elif cfg.is_hybrid:
+        later = "the hybrid slice 3b (shared block, paged pool beside " \
+            "slot-shaped SSM state)"
+    elif cfg.is_moe:
+        later = "the MoE slice 3c"
+    elif group in (("dense",), ("ssm",)):
+        return
+    else:
+        later = "a later slice"
+    raise NotImplementedError(
+        f"{cfg.name} ({cfg.family}): not ported yet; it comes with {later} "
+        "(ROADMAP A)")
 
 
 # ---------------------------------------------------------------------------
@@ -76,10 +91,18 @@ def run_sublayer(kind: str, params: dict, ctx: ModelContext,
                  cache_index: Optional[int] = None,
                  paged: Optional[dict] = None
                  ) -> Tuple[torch.Tensor, Optional[dict]]:
-    """One dense sub-layer; returns ``(x_out, cache)``."""
+    """One dense or SSM sub-layer; returns ``(x_out, cache)``.  An SSM
+    sub-layer writes its new conv / ssm state into ``cache`` in place."""
+    cfg = ctx.cfg
+    if kind == "ssm":
+        h = apply_norm(cfg, params["ln1"], x)
+        y, new = ssm_mod.mamba_block(params["ssm"], ctx, h, cache)
+        if cache is not None:
+            for k, v in new.items():
+                cache[k].copy_(v)
+        return x + y, cache
     if kind != "dense":
         raise NotImplementedError(f"sub-layer kind {kind!r} is not ported")
-    cfg = ctx.cfg
     h = apply_norm(cfg, params["ln1"], x)
     a, cache = attention_block(params["attn"], ctx, h, positions,
                                cache=cache, cache_index=cache_index,
@@ -95,21 +118,30 @@ def run_sublayer(kind: str, params: dict, ctx: ModelContext,
 def init_params(gen: torch.Generator, cfg: ModelConfig, dtype,
                 device) -> Params:
     """Random parameters with the reference's shapes and init scales."""
-    _require_dense(cfg)
-    L, D = cfg.num_layers, cfg.d_model
+    _require_ported(cfg)
+    group, L = arch_group(cfg)
+    D = cfg.d_model
 
     def stacked_norm():
         return tree.map(lambda t: t.expand(L, -1).clone(),
                         norm_init(cfg, D, device))
 
-    sub = {"ln1": stacked_norm(),
-           "attn": attn_init(gen, cfg, dtype, device, stack=L),
-           "mlp": mlp_init(gen, cfg, dtype, device, stack=L)}
-    if not cfg.parallel_block:
-        sub["ln2"] = stacked_norm()
+    def sublayer(kind):
+        if kind == "ssm":
+            return {"ln1": stacked_norm(),
+                    "ssm": ssm_mod.mamba_init(gen, cfg, dtype, device,
+                                              stack=L)}
+        sub = {"ln1": stacked_norm(),
+               "attn": attn_init(gen, cfg, dtype, device, stack=L),
+               "mlp": mlp_init(gen, cfg, dtype, device, stack=L)}
+        if not cfg.parallel_block:
+            sub["ln2"] = stacked_norm()
+        return sub
+
     p: Params = {"embed": embed_init(gen, cfg.padded_vocab, D, dtype, device),
                  "final_norm": norm_init(cfg, D, device),
-                 "groups": {"sub_0": sub}}
+                 "groups": {f"sub_{j}": sublayer(kind)
+                            for j, kind in enumerate(group)}}
     if not cfg.tie_embeddings:
         p["unembed"] = embed_init(gen, cfg.padded_vocab, D, dtype, device)
     return p
@@ -144,7 +176,7 @@ def forward_train(params: Params, ctx: ModelContext, tokens: torch.Tensor,
     layer when the tier does not offload).  The reference's split into a
     stashed and an unstashed scan serves the ``auto`` planner, which ports
     with slice 5."""
-    _require_dense(ctx.cfg)
+    _require_ported(ctx.cfg)
     cfg = ctx.cfg
     group, n_groups = arch_group(cfg)
     x = embed_tokens(params, ctx, tokens)
@@ -195,12 +227,20 @@ def forward_serve(params: Params, ctx: ModelContext, tokens: torch.Tensor,
 # caches
 def init_caches(cfg: ModelConfig, batch: int, seq: int, dtype, device
                 ) -> Params:
-    """Stacked (n_groups, B, S, K, hd) k/v caches matching forward_serve."""
-    _require_dense(cfg)
-    _, n_groups = arch_group(cfg)
-    one = init_kv_cache(cfg, batch, seq, dtype, device)
-    return {"sub_0": {k: v[None].repeat(n_groups, *([1] * v.ndim))
-                      for k, v in one.items()}}
+    """Stacked caches matching forward_serve: (n_groups, B, S, K, hd) k/v
+    for a dense group, (n_groups, B, W-1, conv_dim) conv and (n_groups, B,
+    H, P, N) ssm state for an SSM group."""
+    _require_ported(cfg)
+    group, n_groups = arch_group(cfg)
+
+    def one(kind):
+        if kind == "ssm":
+            return ssm_mod.init_ssm_cache(cfg, batch, dtype, device)
+        return init_kv_cache(cfg, batch, seq, dtype, device)
+
+    return {f"sub_{j}": {k: v[None].repeat(n_groups, *([1] * v.ndim))
+                         for k, v in one(kind).items()}
+            for j, kind in enumerate(group)}
 
 
 def slot_cache(caches: Params, slot: int) -> Params:
@@ -232,9 +272,14 @@ def paged_pool(cfg: ModelConfig, num_pages: int, page_size: int, dtype,
                device) -> Params:
     """A zeroed page pool: each kv leaf is (n_groups, num_pages + 1, page,
     K, hd) — ``num_pages`` real frames plus ONE trailing scratch frame (id
-    ``num_pages``) that absorbs writes routed away by the slot mask."""
-    _require_dense(cfg)
-    _, n_groups = arch_group(cfg)
+    ``num_pages``) that absorbs writes routed away by the slot mask.
+    Raises ``ValueError`` for an architecture with no k/v cache (pure SSM
+    state is O(1) a session and gains nothing from paging)."""
+    _require_ported(cfg)
+    group, n_groups = arch_group(cfg)
+    if "dense" not in group:
+        raise ValueError("paged KV needs attention k/v caches; this "
+                         f"architecture's cache ({cfg.name}) has none")
     shape = (n_groups, num_pages + 1, page_size, cfg.num_kv_heads,
              cfg.resolved_head_dim)
     return {"sub_0": {k: torch.zeros(shape, dtype=dtype, device=device)

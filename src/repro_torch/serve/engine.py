@@ -189,15 +189,19 @@ class Engine:
             tfm.scatter_one_page(cache.pool, view, target,
                                  wp * cache.page_size, cache.page_size)
             return logits
-        # monolithic slots: the step writes row ``length`` of every slot;
-        # the slots outside this length group get theirs back
+        # monolithic slots: the step writes row ``length`` of every k/v
+        # slot and the whole recurrent (conv / ssm) state of every slot;
+        # the slots outside this length group get theirs back (the
+        # reference's ``_masked_merge``), k/v by that row only
         keep = torch.as_tensor(np.flatnonzero(~mask), device=self.device)
-        saved = [c[:, keep, length].clone()
-                 for c in tree.leaves(cache.caches)]
+        leaves, paths = tree.flatten(cache.caches)
+        where = [(slice(None), keep, length) if path[-1] in tfm.PAGED_KEYS
+                 else (slice(None), keep) for path in paths]
+        saved = [c[w].clone() for c, w in zip(leaves, where)]
         logits, _ = self.model.decode_step(self.params, tok, pos,
                                            cache.caches, length)
-        for c, s in zip(tree.leaves(cache.caches), saved):
-            c[:, keep, length] = s
+        for c, w, s in zip(leaves, where, saved):
+            c[w] = s
         return logits
 
     # ------------------------------------------------------------------

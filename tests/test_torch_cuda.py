@@ -253,3 +253,101 @@ def test_wrapped_train_step_cuda_matches_cpu(dev, codec, loss_tol, grad_tol):
     for a, b in zip(tree.leaves(gc), tree.leaves(gg)):
         scale = a.abs().max().item() or 1.0
         assert (a - b).abs().max().item() / scale < grad_tol
+
+
+# ---------------------------------------------------------------------------
+# slice 3: the SSD chunked scan and the mamba2 engine
+def _ssd_inputs(dev, dtype, b, S, H, G, P=64, N=128, init=False, seed=0):
+    """Scan inputs as ``mamba_block`` hands them over (dt softplus'd, A the
+    init's decays), the rows past ``S`` padded to the chunk with zeros."""
+    F = torch.nn.functional
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn((b, S, H, P), generator=g)
+    B = torch.randn((b, S, G, N), generator=g)
+    C = torch.randn((b, S, G, N), generator=g)
+    dt = F.softplus(torch.randn((b, S, H), generator=g))
+    A = -torch.linspace(1.0, 16.0, H)
+    s0 = torch.randn((b, H, P, N), generator=g) * 0.5 if init else None
+    pad = (-S) % 128
+    x, B, C = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (x, B, C))
+    dt = F.pad(dt, (0, 0, 0, pad))
+    return ([x.to(dev, dtype), dt.to(dev), A.to(dev), B.to(dev, dtype),
+             C.to(dev, dtype)],
+            None if s0 is None else s0.to(dev, dtype))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2.0 ** -8)])
+@pytest.mark.parametrize("b,S,G,init", [(2, 1024, 1, False),
+                                        (2, 1024, 1, True),
+                                        (1, 384, 2, True),
+                                        (2, 1000, 2, False)])
+def test_ssd_scan_matches_plain(dev, dtype, tol, b, S, G, init):
+    """Kernel == plain version (``ssd_chunked``), y and the final state,
+    each within ``tol`` of its largest magnitude: f32 sums in other
+    orders; bf16 rounds the scores, the decayed B / C and the state at the
+    same places, where an f32 difference can tip one rounding (one bf16
+    ulp of the largest output)."""
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    args, s0 = _ssd_inputs(dev, dtype, b, S, 32, G, init=init, seed=S + G)
+    before = ssd_scan.launches
+    y, fin = ssd_scan(*args, 128, init_state=s0)
+    assert ssd_scan.launches == before + 1
+    wy, wfin = ref.ssd_chunked_ref(*args, 128, init_state=s0)
+    for got, want in ((y, wy), (fin, wfin)):
+        assert got.dtype == want.dtype and got.shape == want.shape
+        err = (got.float() - want.float()).abs().max() \
+            / want.float().abs().max()
+        assert err.item() < tol
+
+
+def test_ssd_scan_rejects_what_it_cannot_run(dev):
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    args, _ = _ssd_inputs(dev, torch.float32, 1, 256, 4, 1)
+    x, dt, A, B, C = args
+    with pytest.raises(ValueError):          # non-contiguous x
+        ssd_scan(x.transpose(1, 2).contiguous().transpose(1, 2), dt, A, B,
+                 C, 128)
+    with pytest.raises(ValueError):          # S not a multiple of the chunk
+        ssd_scan(x[:, :200].contiguous(), dt[:, :200].contiguous(), A,
+                 B[:, :200].contiguous(), C[:, :200].contiguous(), 128)
+    with pytest.raises(TypeError):           # mixed dtypes
+        ssd_scan(x, dt, A, B.bfloat16(), C, 128)
+    with pytest.raises(ValueError):          # a CPU input beside CUDA ones
+        ssd_scan(x, dt, A.cpu(), B, C, 128)
+    shifted = torch.empty(x.numel() + 2, device=dev)[2:].view_as(x)
+    shifted.copy_(x)                         # contiguous, 8 bytes off
+    with pytest.raises(ValueError):
+        ssd_scan(shifted, dt, A, B, C, 128)
+
+
+def test_mamba2_engine_kernel_matches_plain(dev):
+    """The reduced mamba2 on the card (chunk 16, N 16, P 32), fair
+    preemption parking state to the host tier, prompts across chunk
+    boundaries: the scan kernel streams what its plain version does."""
+    cfg = ARCHS["mamba2-370m"].reduced(dtype="float32")
+    model = Model(cfg, device=dev)
+    params = model.init(0)
+    rng = np.random.default_rng(11)
+    reqs = [(i, rng.integers(0, 512, size=(n,)).astype(np.int32), 9)
+            for i, n in enumerate((12, 20, 37, 12))]
+
+    def streams(impl):
+        ops.set_ssd_impl(impl)
+        try:
+            eng = Engine(model, params, batch=2, max_len=64, spill="host",
+                         scheduler=FairScheduler(quantum=3))
+            for uid, prompt, n in reqs:
+                eng.submit(Request(uid=uid, prompt=prompt, max_new_tokens=n))
+            done = sorted(eng.run(), key=lambda r: r.uid)
+        finally:
+            ops.set_ssd_impl("cuda")
+        return [r.out_tokens for r in done], eng.traffic_report()
+
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    want, _ = streams("torch")
+    before = ssd_scan.launches
+    got, report = streams("cuda")
+    assert got == want
+    assert report["kv_stash"]["calls"] > 0
+    assert ssd_scan.launches - before == 2 * len(reqs)   # 2 layers each

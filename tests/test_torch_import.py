@@ -91,3 +91,12 @@ def test_training_slice_modules_are_covered(module):
     """The training slice's modules are among those the import checks
     above walk (no jax / repro import, importable without a card)."""
     assert module in _modules()
+
+
+@pytest.mark.parametrize("module", [
+    "repro_torch.models.ssm", "repro_torch.kernels.ssd_scan",
+    "repro_torch.kernels.ops"])
+def test_ssm_slice_modules_are_covered(module):
+    """The SSM slice's modules are among those the import checks above
+    walk (no jax / repro import, importable without a card)."""
+    assert module in _modules()

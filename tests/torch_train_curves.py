@@ -6,6 +6,8 @@ on a GPU.
         --layers 4 --batch 8 --seq 1024 --steps 20 --lr 3e-3
     PYTHONPATH=src python tests/torch_train_curves.py --device cuda \\
         --layers 30 --batch 8 --seq 1024 --steps 20 --lr 3e-3
+    PYTHONPATH=src python tests/torch_train_curves.py --device cuda \\
+        --arch mamba2-370m --layers 48 --steps 10 --total-steps 10 --lr 3e-4
 
 Every run takes the training CLI's schedule for a ``--total-steps`` run
 (warmup a tenth of it, cosine decay) and the same synthetic stream
@@ -18,9 +20,10 @@ layers.  The runs:
   On one device (no mesh) the reference calls every layer bare, so no
   policy or codec changes its numbers.  On a GPU the weights come from
   the port's initialiser and JAX is not imported;
-* ``port_plain`` (GPU only): ``--policy none``, attention through the
-  plain twin: no kernel runs;
-* ``port``: ``--policy none``; on a GPU attention runs the flash kernel;
+* ``port_plain`` (GPU only): ``--policy none``, attention and the SSD
+  scan through their plain versions: no kernel runs;
+* ``port``: ``--policy none``; on a GPU attention runs the flash kernel
+  and the SSD scan its kernel;
 * ``port_<policy>_<codec>``: every layer input stashed through the codec
   (``--policy host --compress fp8`` by default), through its kernels on a
   GPU.
@@ -159,6 +162,7 @@ def main(argv=None):
             return tree.map(lambda t: t.detach().clone(), init)
     for name, impl, policy, codec in runs:
         kops.set_flash_impl(impl)
+        kops.set_ssd_impl(impl)
         model, tc = _model(args, tcfg, policy, codec)
         state = init_state(model, tc, params=start())
         step = make_train_step(model, tc)
