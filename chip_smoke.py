@@ -8,9 +8,16 @@ Phases (each failure exits non-zero; nothing is caught and carried on):
 1. device   — requires CUDA; prints the card's name and power limit.
 2. build    — compiles the CUDA kernels from ``src/repro_torch/kernels/csrc``.
 3. kernels  — holds each kernel against its plain PyTorch version on the
-              card at the main path's shapes and times kernel, plain
-              version, the least time the card could take (bound) and, for
-              the paged decode, one PyTorch library call as a yardstick.
+              card at the main paths' shapes (zamba2-2.7b's too: the paged
+              decode at head_dim 80 without GQA, the scan at 80 heads of
+              state 64, the int8 codec on 80-column page rows) and times
+              kernel, plain version, the least time the card could take
+              (bound) and, for the paged decode, the flash forward and the
+              GEMM, one PyTorch library call as a yardstick.  The GEMM
+              (``ops.gemm``, on no model path) is held to its plain
+              version over the reference's sweep, the microbench's shape
+              and zamba2's MLP at 4096 tokens, then driven once, counted,
+              through its entry point: that MLP's two products.
 4. serve    — serves full-width smollm-135m (bf16, random weights from a
               seed) through ``repro_torch.launch.serve``: paged KV, in-place
               kernel decode, int8 spill codec through its kernels, an
@@ -51,9 +58,25 @@ Phases (each failure exits non-zero; nothing is caught and carried on):
               recompute); profiles two more steps; then 3 steps twice,
               scan plain against scan kernel, every loss and every step-1
               gradient leaf compared.
+8. serve    — serves full-width zamba2-2.7b (bf16, random weights from a
+   zamba2     seed) through ``repro_torch.launch.serve``: the shared
+              attention block's k/v in an overcommitted page pool (96
+              pages of 16 for 6 slots of 512 rows) with int8 spill to
+              pinned host memory and in-place kernel decode, each slot's
+              Mamba2 conv / ssm state beside the pool, parked whole under
+              fair preemption; prompts of 128, 256 and 384 tokens.  The
+              path runs four times — paged decode and scan plain, then on
+              their kernels, in bfloat16 and with the weights in float32,
+              every run after the first on the first's tokens — and every
+              sampling call's logits must agree; then once more, counted:
+              every
+              request finished, the scan launched once per
+              Mamba2 block per admission, the paged decode once per site
+              per decode call, stash and fetch bytes equal, the parked
+              state 37 MB a park.
 
 The line before the last is a JSON object with one entry per kernel (its
-launches summed over the counted runs of phases 4 to 7, and per run); the
+launches summed over the counted runs of phases 3 to 8, and per run); the
 last line is ``{"ok": true, "device": {...}}``.
 """
 import json
@@ -80,11 +103,11 @@ MAIN_ARGS = ["--arch", "smollm", "--device", "cuda", "--seed", "0",
              "--new-tokens", "64", "--scheduler", "fair", "--quantum", "16",
              "--spill", "host", "--page-codec", "int8", "--decode-kernel"]
 # every decode step's logits, kernel run against plain run on the same
-# token streams, both bf16 through 30 layers: attention outputs may differ
-# by a bf16 ulp per layer (different summation order) and the caches drift
-# apart by as much.  On an H100 (700 W) the 622 calls read 0.051 max and
-# 0.0088 worst-call mean with |logits| up to 2.7; a kernel reading its side
-# pool with K and V scales swapped reads 0.60 and 0.087.
+# token streams, both bf16: attention outputs may differ by a bf16 ulp
+# per layer (different summation order) and the caches drift apart by as
+# much.  On an H100 (700 W), through all 30 layers, the 622 calls read
+# 0.051 max and 0.0088 worst-call mean with |logits| up to 2.7; a kernel
+# reading its side pool with K and V scales swapped reads 0.60 and 0.087.
 LOGIT_ATOL = 0.15
 LOGIT_MEAN_ATOL = 0.02
 
@@ -125,19 +148,21 @@ TRAIN_GRAD_RTOL = 0.15
 SSD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -8}
 
 # mamba2 serving main path: full-width mamba2-370m, 16 requests of 320
-# prompt tokens (three 128-row scan chunks after padding) + 64 new over 8
+# prompt tokens (three 128-row scan chunks after padding) + 64 new over 6
 # monolithic slots of 512 rows, fair preemption every 16 tokens, cold
 # sessions' state to pinned host memory
 SSM_LAYERS = 48
 SSM_SERVE_ARGS = ["--arch", "mamba2-370m", "--device", "cuda", "--seed", "0",
-                  "--batch", "6", "--max-len", "512", "--requests", "16",
+                  "--batch", "6",
+                  "--max-len", "512", "--requests", "16",
                   "--prompt-len", "320", "--new-tokens", "64",
                   "--scheduler", "fair", "--quantum", "16", "--spill", "host"]
 # every sampling call's logits of the scan kernel run against the plain
 # run, all runs on the first (plain, bfloat16) run's token streams.  In
 # float32 the two agree closely: on an H100 (700 W) 0.0025 max and 1.6e-4
-# worst-call mean over the 349 calls, |logits| up to 3.6.  In bfloat16 the
-# random 48-layer model amplifies rounding (0.98 / 0.125; the plain
+# worst-call mean over the 349 calls, |logits| up to 3.6, through all 48
+# layers.  In bfloat16 the random model amplifies rounding (0.98 / 0.125
+# at 48 layers; the plain
 # version's bfloat16 run lies 2.80 / 0.417 from its float32 run), so the
 # bfloat16 kernel run is held to the distance bfloat16 itself puts between
 # the plain version's run and its float32 run on the same streams
@@ -160,6 +185,47 @@ SSM_TRAIN_ARGS = ["--arch", "mamba2-370m", "--device", "cuda", "--seed", "0",
 # leaves), so the kernel run is held to that distance: step 1's loss and
 # all gradient leaves at once
 SSM_TRAIN_F32_TOL = {"loss": 5e-3, "leaf_norm": 5e-2}
+
+# GEMM, kernel against plain version (the float32 product rounded once) on
+# the same inputs, as max |d| over the largest |want|: float32 sums the
+# same products in other orders (limit 1e-5); bfloat16 rounds two float32
+# sums that differ in their last bits, so one rounding can tip by one bf16
+# ulp of the output (limit: one ulp of the largest output).  On an H100
+# (700 W) the worst case read 0.45 (f32, 12 cases) and 0.50 (bf16, 13) of
+# its limit; the last K slab dropped reads 24.0 against 4.6e-4
+GEMM_F32_RTOL = 1e-5
+# zamba2's MLP at a 4096-token batch: d_model 2560, d_ff 10240
+GEMM_MLP = ((4096, 2560, 10240), (4096, 10240, 2560))
+
+# zamba2 serving main path: full-width zamba2-2.7b (54 Mamba2 blocks, the
+# shared attention block at 9 sites), 16 requests of 128 / 256 / 384
+# prompt tokens (whole scan chunks) + 64 new over 6 slots of 512 rows, a
+# pool of 96 pages of 16 (192 pages' worth of slots: overcommitted; peak
+# demand ~6 x 28 pages), int8 spill to pinned host memory, in-place kernel
+# decode, fair preemption every 16 tokens
+ZAMBA_LAYERS, ZAMBA_SITES = 54, 9
+ZAMBA_ARGS = ["--arch", "zamba2-2.7b", "--device", "cuda", "--seed", "0",
+              "--batch", "6", "--max-len", "512", "--page-size", "16",
+              "--pages", "96", "--requests", "16",
+              "--prompt-len", "128,256,384", "--new-tokens", "64",
+              "--scheduler", "fair", "--quantum", "16", "--spill", "host",
+              "--page-codec", "int8", "--decode-kernel"]
+# one session's conv and ssm state in bf16: 54 x (80 heads x 64 x 64 +
+# 3 x 5248 conv channels) x 2 bytes
+ZAMBA_STATE_BYTES = ZAMBA_LAYERS * (80 * 64 * 64 + 3 * 5248) * 2
+# every sampling call's logits, kernels (paged decode and scan) against
+# their plain versions on the first run's token streams, both held to the
+# distance bfloat16 itself puts between the plain version's run and its
+# float32 run: bfloat16 to all of it (as phase 6), float32 to 1/50 of it.
+# Mamba2's absolute float32 limits (1e-2 max, 1e-3 worst-call mean), the
+# first ones set here, read 0.0101 / 0.00188 on an H100 (700 W) with the
+# argmax equal on 1024 of 1024 rows: the random 63-layer stack amplifies
+# rounding further than mamba2's (bf16 vs f32 4.08 / 0.675 against 2.80 /
+# 0.417), so the limit follows that amplification (0.082 / 0.0135 there).
+# Planted kernel faults read far beyond it in float32: side-pool frames
+# dequantised with frame 0's scales 4.11 / 0.671, the scan's state carried
+# without its chunk decay 5.26 / 0.996
+ZAMBA_LOGIT_F32_SHARE = 0.02
 
 
 def fail(msg: str) -> None:
@@ -616,6 +682,244 @@ def check_ssd(dev, results, others):
             others["ssd_scan@prefill"] = row
 
 
+def gemm_bytes_ops(x, w):
+    """Bytes the product must move (x and w read once, out written once)
+    and its 2MNK operations."""
+    (M, K), N = x.shape, w.shape[1]
+    e = x.element_size()
+    return (M * K + K * N + M * N) * e, 2.0 * M * N * K
+
+
+def gemm_tol(want: torch.Tensor) -> float:
+    if want.dtype == torch.float32:
+        return GEMM_F32_RTOL * want.abs().max().item()
+    return bf16_ulps(want.float(), 1)
+
+
+def check_gemm(dev, results, others):
+    """The output-stationary GEMM against its plain version: the
+    reference's sweep (tests/test_kernels.py) with the port's own blocks
+    and with the reference's where the kernel has that tile, the
+    microbench's 256 x 512 x 256 with 128 blocks, non-square shapes over
+    every tile (so w read as (n, k) cannot pass) and zamba2's MLP at 4096
+    tokens; float32 and bfloat16.  Timed at the MLP shapes in bfloat16
+    beside torch.matmul (cuBLAS) and at the microbench's in float32."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.gemm_os import gemm_os, supported
+    cases = [(128, 128, 128, None), (128, 128, 128, (128, 128, 128)),
+             (256, 512, 384, None), (256, 512, 384, (128, 128, 128)),
+             (256, 1024, 256, None), (256, 1024, 256, (128, 128, 256)),
+             (512, 256, 512, None), (256, 512, 256, (128, 128, 128)),
+             (192, 320, 448, (64, 64, 32)), (384, 96, 640, (128, 64, 48)),
+             (256, 1024, 128, (64, 128, 64))] + \
+        [(m, k, n, None) for m, k, n in GEMM_MLP]
+    g = torch.Generator(device=dev).manual_seed(50)
+    max_err = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        worst = share = 0.0
+        n_cases = 0
+        for m, k, n, blocks in cases:
+            kw = {} if blocks is None else dict(zip(("bm", "bn", "bk"),
+                                                    blocks))
+            if blocks and not supported(*blocks, torch.tensor(
+                    [], dtype=dtype).element_size()):
+                continue      # the reference's 128 x 128 x 256 in float32
+            x = torch.randn((m, k), generator=g, device=dev).to(dtype)
+            w = torch.randn((k, n), generator=g, device=dev).to(dtype)
+            got = gemm_os(x, w, **kw)
+            torch.cuda.synchronize()
+            want = ref.gemm_ref(x, w)
+            if not torch.isfinite(got.float()).all():
+                fail(f"gemm_os {dtype} {m}x{k}x{n} not finite")
+            e = (got.float() - want.float()).abs().max().item()
+            tol = gemm_tol(want)
+            if e > tol:
+                fail(f"gemm_os {dtype} {m} x {k} x {n} blocks {blocks}: max "
+                     f"abs err {e} > {tol}")
+            worst, share = max(worst, e), max(share, e / tol)
+            n_cases += 1
+        max_err[dtype] = worst
+        limit = (f"{GEMM_F32_RTOL} of |out|" if dtype == torch.float32
+                 else "1 bf16 ulp of |out|")
+        print(f"  gemm_os {str(dtype)[6:]}: {n_cases} cases, max abs err "
+              f"{worst:.3g}, at most {share:.2f} of the limit ({limit})",
+              flush=True)
+
+    def timed(x, w, kw, peak, iters):
+        nbytes, ops = gemm_bytes_ops(x, w)
+        b_ms, b_by = bound_ms(nbytes, ops, peak)
+        return dict(
+            route="cuda", source="src/repro_torch/kernels/csrc/gemm_os.cu",
+            replaces="src/repro/kernels/gemm_os.py:71",
+            max_abs_err=max_err[x.dtype],
+            ms=device_ms(lambda: gemm_os(x, w, **kw), iters=iters),
+            plain_ms=device_ms(lambda: ref.gemm_ref(x, w), iters=iters),
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=device_ms(lambda: torch.matmul(x, w), iters=iters),
+            eager_ms=eager_ms(lambda: gemm_os(x, w, **kw),
+                              iters=2 * iters))
+
+    for i, (m, k, n) in enumerate(GEMM_MLP):
+        x = (torch.randn((m, k), generator=g, device=dev)).bfloat16()
+        w = (torch.randn((k, n), generator=g, device=dev)).bfloat16()
+        row = timed(x, w, {}, PEAK_BF16_FLOPS, 5)
+        if i == 0:
+            results["gemm_os"] = row
+        else:
+            others["gemm_os@mlp_down"] = row
+    x = torch.randn((256, 512), generator=g, device=dev)
+    w = torch.randn((512, 256), generator=g, device=dev)
+    others["gemm_os@microbench_f32"] = timed(
+        x, w, dict(bm=128, bn=128, bk=128), PEAK_F32_FLOPS, 100)
+
+
+def check_gemm_path():
+    """The GEMM's main path, counted: zamba2's MLP over a 4096-token batch
+    through the ``ops.gemm`` entry point, gelu(x @ w1) @ w2 in bfloat16
+    with weights at the model's init scale, against the same chain through
+    the same entry point on its plain version (``set_gemm_impl("torch")``;
+    limit: 4 bf16 ulps of the largest output — the
+    first product may differ by one ulp per element and the second sums
+    those differences)."""
+    from repro_torch.kernels import ops
+    F = torch.nn.functional
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(51)
+    (M, D, Fd), _ = GEMM_MLP
+    x = torch.randn((M, D), generator=g, device=dev).bfloat16()
+    w1 = (torch.randn((D, Fd), generator=g, device=dev) * D ** -0.5
+          ).bfloat16()
+    w2 = (torch.randn((Fd, D), generator=g, device=dev) * Fd ** -0.5
+          ).bfloat16()
+
+    def mlp(mm):
+        return mm(F.gelu(mm(x, w1), approximate="tanh"), w2)
+
+    y, launches = counted(lambda: mlp(ops.gemm))
+    ops.set_gemm_impl("torch")
+    try:
+        want = mlp(ops.gemm)
+    finally:
+        ops.set_gemm_impl("cuda")
+    e = (y.float() - want.float()).abs().max().item()
+    tol = bf16_ulps(want.float(), 4)
+    print(f"  gemm path (zamba2 MLP, {M} tokens, through ops.gemm): max abs "
+          f"err {e:.3g} (limit {tol:.3g}), launches {launches['gemm_os']}",
+          flush=True)
+    if not torch.isfinite(y.float()).all() or e > tol:
+        fail("the GEMM path disagrees with its plain version")
+    if launches["gemm_os"] != 2:
+        fail(f"gemm_os launched {launches['gemm_os']} times on its path; "
+             "want 2")
+    return launches
+
+
+def check_zamba2_kernels(dev, others):
+    """The serving kernels at zamba2-2.7b's shapes, new to them: the paged
+    decode at B 6, H = K = 32 (no GQA), head_dim 80, 448 rows visible,
+    with int8 side-pool frames (f32 2e-5, bf16 two bf16 ulps of |out|, as
+    ``check_paged``); the scan at (1, 384, 80 heads, P 64), N 64, with and
+    without an initial state (``SSD_RTOL``); the int8 pack and the unpack
+    of one spilled page leaf, 9 sites x 16 rows x 32 heads = 4608 rows of
+    80, bit-exact.  Each timed in bfloat16."""
+    from repro_torch.kernels import offload_pack as kp
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.paged_attention import paged_decode_attention
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    shape = dict(B=6, H=32, K=32, hd=80, page=16, pp=32, P=193, C=32)
+    for dtype in (torch.float32, torch.bfloat16):
+        args, side = paged_case(dev, dtype, seed=7, **shape)
+        share = 0.0
+        for idx in (0, 15, 127, 383, 447):
+            for extra in ({}, side):
+                got = paged_decode_attention(*args, idx, **extra)
+                torch.cuda.synchronize()
+                want = ref.paged_decode_attention_ref(*args, idx, **extra)
+                tol = 2e-5 if dtype == torch.float32 else bf16_ulps(want, 2)
+                e = (got.float() - want.float()).abs().max().item()
+                if not torch.isfinite(got.float()).all() or e > tol:
+                    fail(f"paged decode at zamba2's shape {dtype} cache_index "
+                         f"{idx}: max abs err {e} > {tol}")
+                share = max(share, e / tol)
+        print(f"  paged_decode_attention at hd 80, H = K = 32, "
+              f"{str(dtype)[6:]}: at most {share:.2f} of the limit",
+              flush=True)
+        worst = 0.0
+        for init in (False, True):
+            x, dt, A, B, C, s0 = ssd_case(dev, dtype, 1, 384, 80, 1, 60,
+                                          P=64, N=64, init=init)
+            y, fin = ssd_scan(x, dt, A, B, C, 128, init_state=s0)
+            torch.cuda.synchronize()
+            wy, wfin = ref.ssd_chunked_ref(x, dt, A, B, C, 128,
+                                           init_state=s0)
+            for got, want in ((y, wy), (fin, wfin)):
+                if not torch.isfinite(got.float()).all():
+                    fail("ssd_scan at zamba2's shape not finite")
+                worst = max(worst, (got.float() - want.float()).abs().max()
+                            .item() / want.float().abs().max().item())
+        print(f"  ssd_scan at 80 heads, N 64, {str(dtype)[6:]}: max |d| / "
+              f"max |want| {worst:.3g} (limit {SSD_RTOL[dtype]})",
+              flush=True)
+        if worst > SSD_RTOL[dtype]:
+            fail(f"ssd_scan at zamba2's shape {dtype}: off by {worst:.3g}")
+        leaf = (torch.randn((9 * 16 * 32, 80), device=dev) * 3).to(dtype)
+        R = leaf.shape[0]
+        q, sc = kp.int8_pack(leaf, block_rows=R)
+        qr, sr = ref.int8_pack_ref(leaf, R)
+        if not (torch.equal(q, qr) and torch.equal(sc, sr) and torch.equal(
+                kp.fp8_unpack(q, sc, block_rows=R, dtype=dtype),
+                ref.fp8_unpack_ref(q, sc, R, dtype))):
+            fail(f"int8 pack / unpack of a zamba2 page leaf ({dtype}) not "
+                 "bit-exact")
+    print("  int8_pack and unpack of a zamba2 page leaf (4608 x 80): "
+          "bit-exact", flush=True)
+
+    args, side = paged_case(dev, torch.bfloat16, seed=8, **shape)
+    idx = 447
+
+    def paged():
+        return paged_decode_attention(*args, idx, **side)
+
+    nbytes, ops = paged_bytes_ops(args, idx)
+    b_ms, b_by = bound_ms(nbytes, ops, PEAK_BF16_FLOPS)
+    others["paged_decode_attention@zamba2"] = dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/paged_attention.cu",
+        replaces="src/repro/kernels/paged_attention.py:189",
+        max_abs_err=None, ms=device_ms(paged), plain_ms=device_ms(
+            lambda: ref.paged_decode_attention_ref(*args, idx, **side)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        eager_ms=eager_ms(paged))
+    x, dt, A, B, C, _ = ssd_case(dev, torch.bfloat16, 1, 384, 80, 1, 61,
+                                 P=64, N=64)
+    nbytes, ops = ssd_bytes_ops(x, dt, B, None, 128)
+    b_ms, b_by = bound_ms(nbytes, ops, PEAK_BF16_FLOPS)
+    others["ssd_scan@zamba2"] = dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+        replaces="src/repro/kernels/ssd_scan.py:85", max_abs_err=None,
+        ms=device_ms(lambda: ssd_scan(x, dt, A, B, C, 128), iters=20),
+        plain_ms=device_ms(lambda: ref.ssd_chunked_ref(x, dt, A, B, C, 128),
+                           iters=5),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        eager_ms=eager_ms(lambda: ssd_scan(x, dt, A, B, C, 128), iters=20))
+    leaf = (torch.randn((9 * 16 * 32, 80), device=dev) * 3).bfloat16()
+    n, R = leaf.numel(), leaf.shape[0]
+    q, sc = kp.int8_pack(leaf, block_rows=R)
+    for key, fn, plain, nbytes, site in (
+            ("int8_pack@zamba2", lambda: kp.int8_pack(leaf, block_rows=R),
+             lambda: ref.int8_pack_ref(leaf, R), n * 2 + n + 4,
+             "src/repro/kernels/offload_pack.py:110"),
+            ("fp8_unpack@zamba2", lambda: kp.fp8_unpack(q, sc, block_rows=R),
+             lambda: ref.fp8_unpack_ref(q, sc, R, torch.bfloat16),
+             n + 4 + 2 * n, "src/repro/kernels/offload_pack.py:86")):
+        b_ms, b_by = bound_ms(nbytes, 3.0 * n, PEAK_F32_FLOPS)
+        others[key] = dict(
+            route="cuda",
+            source="src/repro_torch/kernels/csrc/offload_pack.cu",
+            replaces=site, max_abs_err=0.0, ms=device_ms(fn),
+            plain_ms=device_ms(plain), bound_ms=b_ms, bound_by=b_by,
+            library_ms=None, eager_ms=eager_ms(fn))
+
+
 # ---------------------------------------------------------------------------
 def main_path_logits(impl: str, forced=None):
     """Drive the main path's engine (fresh model from the same seed) with
@@ -696,12 +1000,14 @@ def kernel_counters():
     """Every ported kernel's wrapper (each counts its own launches)."""
     from repro_torch.kernels import offload_pack as kp
     from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.gemm_os import gemm_os
     from repro_torch.kernels.paged_attention import paged_decode_attention
     from repro_torch.kernels.ssd_scan import ssd_scan
     return {"paged_decode_attention": paged_decode_attention,
             "int8_pack": kp.int8_pack, "fp8_unpack": kp.fp8_unpack,
             "fp8_pack": kp.fp8_pack, "blocksparse_pack": kp.blocksparse_pack,
-            "flash_attention_fwd": flash_attention_fwd, "ssd_scan": ssd_scan}
+            "flash_attention_fwd": flash_attention_fwd, "ssd_scan": ssd_scan,
+            "gemm_os": gemm_os}
 
 
 def counted(run):
@@ -966,18 +1272,27 @@ def check_blocksparse_path():
 
 
 # ---------------------------------------------------------------------------
-def ssm_serve_logits(impl: str, dtype: str, forced=None):
-    """Drive the mamba2 serving path (fresh model from the same seed, its
-    weights in ``dtype``) with the SSD scan on ``impl``.  Returns the
-    logits and tokens of every sampling call (after each admission's
-    prefill and each decode step) and how many engine steps decoded at
-    more than one length.  With ``forced`` (another run's tokens, per
-    call) the engine emits those."""
+def serve_logits(argv, kinds, impl: str, dtype: str, forced=None):
+    """Drive the serving path ``argv`` describes (fresh model from the same
+    seed, its weights in ``dtype``) with the kernels of ``kinds`` ("paged",
+    "ssd") on ``impl``.  Returns the logits and tokens of every sampling
+    call (after each admission's prefill and each decode step) and how
+    many engine steps decoded at more than one length.  With ``forced``
+    (another run's tokens, per call) the engine emits those.  Every
+    decode call is also checked to leave the recurrent (conv / ssm) state
+    of the slots outside its length group bit for bit as it was
+    (``stats["state_moved"]`` counts the calls that did not)."""
+    import numpy as np
+    from repro_torch import tree
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
-    args = serve.parse_args(SSM_SERVE_ARGS)
-    calls, stats = [], {"steps": 0, "mixed": 0, "decodes": 0}
-    ops.set_ssd_impl(impl)
+    from repro_torch.models.transformer import PAGED_KEYS
+    args = serve.parse_args(argv)
+    calls = []
+    stats = {"steps": 0, "mixed": 0, "decodes": 0, "state_moved": 0}
+    setters = [getattr(ops, f"set_{kind}_impl") for kind in kinds]
+    for select in setters:
+        select(impl)
     try:
         eng = serve.build_engine(args, dtype=dtype)
         decode, sample, step = eng._decode, eng._sample, eng.step
@@ -989,9 +1304,19 @@ def ssm_serve_logits(impl: str, dtype: str, forced=None):
             calls.append((logits.float(), toks))
             return toks
 
+        cache = eng.cache
+        leaves, paths = tree.flatten(cache.slot_tree if cache.paged
+                                     else cache.caches)
+        state = [c for c, p in zip(leaves, paths) if p[-1] not in PAGED_KEYS]
+
         def spy_decode(tok, length, mask):
             stats["decodes"] += 1
-            return decode(tok, length, mask)
+            keep = torch.as_tensor(np.flatnonzero(~mask), device=tok.device)
+            before = [c[:, keep].clone() for c in state]
+            out = decode(tok, length, mask)
+            stats["state_moved"] += any(not torch.equal(c[:, keep], b)
+                                        for c, b in zip(state, before))
+            return out
 
         def spy_step():
             before = stats["decodes"]
@@ -1004,19 +1329,20 @@ def ssm_serve_logits(impl: str, dtype: str, forced=None):
         serve.submit_requests(eng, args, {})
         eng.run()
     finally:
-        ops.set_ssd_impl("cuda")
+        for select in setters:
+            select("cuda")
     torch.cuda.synchronize()
     return calls, stats
 
 
-def logit_gap(got, want):
+def logit_gap(got, want, label):
     """(max |d|, worst call's mean |d|, rows whose argmax agrees) of two
     runs' sampling calls."""
     err = mean = 0.0
     agree = rows = 0
     for (g, _), (w, toks) in zip(got, want):
         if not torch.isfinite(g).all():
-            fail("mamba2 serving logits are not finite")
+            fail(f"{label} serving logits are not finite")
         d = (g - w).abs()
         err, mean = max(err, d.max().item()), max(mean, d.mean().item())
         agree += int((g.argmax(-1) == w.argmax(-1)).sum())
@@ -1024,44 +1350,78 @@ def logit_gap(got, want):
     return err, mean, f"{agree}/{rows}"
 
 
-def check_ssm_serve_logits() -> None:
-    """Phase 6: the mamba2 serving path with the scan kernel against the
-    same path with the scan's plain version, every sampling call, in
-    bfloat16 (the main path) and with the weights in float32; every run
-    after the first is forced onto the first's tokens."""
-    base, stats = ssm_serve_logits("torch", "bfloat16")
+def check_serve_kernels_vs_plain(label, argv, kinds, what, f32_tol=None,
+                                 f32_share=None):
+    """A serving path with the kernels of ``kinds`` against the same path
+    with their plain versions, every sampling call, in bfloat16 (the main
+    path) and with the weights in float32; every run after the first is
+    forced onto the first's tokens.  float32 is held to ``f32_tol`` (max,
+    worst call's mean) or to ``f32_share`` of the distance bfloat16
+    rounding puts between the plain version's two runs, bfloat16 to all of
+    that distance."""
+    base, stats = serve_logits(argv, kinds, "torch", "bfloat16")
+    print(f"  {label}: the conv / ssm state of the slots outside each "
+          f"decode call's length group moved in {stats['state_moved']} of "
+          f"{stats['decodes']} calls", flush=True)
+    if stats["state_moved"]:
+        fail(f"{label}: a decode call changed the recurrent state of slots "
+             "it does not decode")
     forced = [t for _, t in base]
     runs = {("bfloat16", "torch"): base}
     for key in (("bfloat16", "cuda"), ("float32", "torch"),
                 ("float32", "cuda")):
-        runs[key] = ssm_serve_logits(key[1], key[0], forced)[0]
+        runs[key] = serve_logits(argv, kinds, key[1], key[0], forced)[0]
         if len(runs[key]) != len(base):
             fail(f"run {key} made {len(runs[key])} sampling calls, the "
                  f"first {len(base)}")
     gaps = {"float32": logit_gap(runs["float32", "cuda"],
-                                 runs["float32", "torch"]),
-            "bfloat16": logit_gap(runs["bfloat16", "cuda"], base),
-            "bfloat16 rounding": logit_gap(base, runs["float32", "torch"])}
+                                 runs["float32", "torch"], label),
+            "bfloat16": logit_gap(runs["bfloat16", "cuda"], base, label),
+            "bfloat16 rounding": logit_gap(base, runs["float32", "torch"],
+                                           label)}
     top = max(w.abs().max().item() for w, _ in base)
-    print(f"  mamba2 logits over {len(base)} sampling calls "
+    print(f"  {label} logits over {len(base)} sampling calls "
           f"({stats['decodes']} decode calls in {stats['steps']} engine "
           f"steps, {stats['mixed']} steps at mixed lengths), |logits| max "
           f"{top:.3g}:", flush=True)
     for name, (err, mean, agree) in gaps.items():
-        what = ("plain bf16 vs plain f32" if name == "bfloat16 rounding"
-                else f"scan kernel vs plain, {name}")
-        print(f"    {what}: max abs err {err:.4g}, worst call's mean "
+        line = ("plain bf16 vs plain f32" if name == "bfloat16 rounding"
+                else f"{what} vs plain, {name}")
+        print(f"    {line}: max abs err {err:.4g}, worst call's mean "
               f"{mean:.3g}, argmax agreement {agree}", flush=True)
     if stats["mixed"] == 0:
         fail("no engine step decoded at mixed lengths")
     err, mean, _ = gaps["float32"]
-    if err > SSM_LOGIT_F32_TOL[0] or mean > SSM_LOGIT_F32_TOL[1]:
-        fail(f"mamba2 serving logits (float32) disagree with the plain "
-             f"version beyond {SSM_LOGIT_F32_TOL}")
+    if f32_tol is None:
+        f32_tol = tuple(f32_share * g
+                        for g in gaps["bfloat16 rounding"][:2])
+    print(f"    limits: float32 {f32_tol[0]:.4g} max, {f32_tol[1]:.3g} "
+          "worst call's mean; bfloat16 the plain bf16 vs f32 distance",
+          flush=True)
+    if err > f32_tol[0] or mean > f32_tol[1]:
+        fail(f"{label} serving logits (float32) disagree with the plain "
+             f"version beyond {f32_tol}")
     if any(a > b for a, b in zip(gaps["bfloat16"][:2],
                                  gaps["bfloat16 rounding"][:2])):
-        fail("mamba2 serving logits (bfloat16): the kernel moves them "
+        fail(f"{label} serving logits (bfloat16): the kernels move them "
              "further than bfloat16 rounding moves the plain version")
+
+
+def check_ssm_serve_logits() -> None:
+    """Phase 6: mamba2 serving, the scan kernel against its plain
+    version."""
+    check_serve_kernels_vs_plain("mamba2", SSM_SERVE_ARGS, ("ssd",),
+                                 "scan kernel", SSM_LOGIT_F32_TOL)
+
+
+def check_zamba2_serve_logits() -> None:
+    """Phase 8: zamba2 serving, the paged decode and the scan on their
+    kernels against both on their plain versions (the int8 codec runs its
+    kernels in every run)."""
+    check_serve_kernels_vs_plain("zamba2", ZAMBA_ARGS,
+                                 ("paged", "ssd"),
+                                 "paged decode + scan kernels",
+                                 f32_share=ZAMBA_LOGIT_F32_SHARE)
 
 
 def check_ssm_serve_main_path():
@@ -1091,6 +1451,56 @@ def check_ssm_serve_main_path():
     if not stash.get("calls") or any(stash.get(k) != fetch.get(k)
                                      for k in ("wire_bytes", "calls")):
         fail("the mamba2 spill did not move equal stash and fetch bytes")
+    return launches
+
+
+def check_zamba2_serve_main_path():
+    """Phase 8's counted run: every request finishes; the scan launches
+    once per Mamba2 block per admission and the paged decode once per site
+    per decode call; pages are evicted and resumed compressed, slots
+    parked; what was stashed comes back byte for byte; each park moves one
+    session's state."""
+    from repro_torch.launch import serve
+    eng, launches = counted(lambda: serve.main(ZAMBA_ARGS))
+    print(f"  launches on the zamba2 serving path: {launches}", flush=True)
+    sessions = eng.sessions
+    if len(sessions) != 16 or any(s.finish_reason != "length"
+                                  or len(s.result()) != 64
+                                  for s in sessions):
+        fail("not every request finished with 64 tokens: " + str(
+            [(s.uid, s.finish_reason, len(s.result())) for s in sessions]))
+    vocab = eng.model.cfg.padded_vocab
+    if any(not 0 <= t < vocab for s in sessions for t in s.result()):
+        fail("a generated token lies outside the padded vocabulary")
+    report = eng.traffic_report()
+    steps = report["decode_io"]["steps"]
+    if launches["ssd_scan"] != ZAMBA_LAYERS * len(sessions):
+        fail(f"ssd_scan launched {launches['ssd_scan']} times for "
+             f"{len(sessions)} admissions; want {ZAMBA_LAYERS} each")
+    if launches["paged_decode_attention"] != ZAMBA_SITES * steps:
+        fail(f"paged_decode_attention launched "
+             f"{launches['paged_decode_attention']} times in {steps} decode "
+             f"calls; want {ZAMBA_SITES} each")
+    for name in ("int8_pack", "fp8_unpack"):
+        if launches[name] <= 0:
+            fail(f"kernel {name} was not launched on the zamba2 path")
+    stash, fetch = report.get("kv_stash", {}), report.get("kv_fetch", {})
+    slots = report["slots"]
+    print(f"  spill: stash {stash}, fetch {fetch}; pages {report['pages']}; "
+          f"slots parked {slots['parks']}x, {slots['park_bytes']} B; "
+          f"compressed adoptions {report['decode_io']['compressed_adopts']};"
+          f" preemptions {sum(s.preemptions for s in sessions)}", flush=True)
+    if not stash.get("calls") or any(stash.get(k) != fetch.get(k)
+                                     for k in ("wire_bytes", "calls")):
+        fail("the zamba2 spill did not move equal stash and fetch bytes")
+    if report["pages"]["evictions"] <= 0 or \
+            report["decode_io"]["compressed_adopts"] <= 0 or \
+            slots["parks"] <= 0:
+        fail("the zamba2 path must evict pages, resume some compressed and "
+             "park slots")
+    if slots["park_bytes"] != slots["parks"] * ZAMBA_STATE_BYTES:
+        fail(f"parked {slots['park_bytes']} B in {slots['parks']} parks; "
+             f"want {ZAMBA_STATE_BYTES} B each")
     return launches
 
 
@@ -1140,6 +1550,9 @@ def main() -> None:
     check_codec(dev, results, others)
     check_flash(dev, results)
     check_ssd(dev, results, others)
+    check_zamba2_kernels(dev, others)
+    check_gemm(dev, results, others)
+    by_path = {"gemm": check_gemm_path()}
     for name, r in list(results.items()) + list(others.items()):
         lib = "-" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         print(f"  {name}: {r['ms']:.4f} ms on the card (eager call "
@@ -1149,7 +1562,7 @@ def main() -> None:
 
     phase("phase 4: serving main path (full-width smollm-135m, bf16)")
     check_main_path_logits()
-    by_path = {"serve": check_serve_main_path()}
+    by_path["serve"] = check_serve_main_path()
 
     phase(f"phase 5: training main path (full-width smollm-135m, bf16, "
           f"batch {TRAIN_BATCH} x {TRAIN_SEQ}, host tier, fp8 stash)")
@@ -1176,6 +1589,11 @@ def main() -> None:
     profile_train_steps(out, SSM_TRAIN_STEPS)
     del out
     check_train_ssd_vs_plain()
+
+    phase("phase 8: serving main path (full-width zamba2-2.7b, bf16, "
+          "paged shared-block KV beside slot-shaped SSM state, int8 spill)")
+    check_zamba2_serve_logits()
+    by_path["serve_zamba2"] = check_zamba2_serve_main_path()
     phase("done")
 
     rows = []

@@ -1,8 +1,9 @@
 """Carry parameters over from the JAX reference's tree.
 
 The port keeps the reference's parameter tree as its own layout (``embed``,
-``final_norm``, ``groups/sub_j/...`` stacked on a leading layer axis,
-weights ``(d_in, d_out)``), so conversion is leaf-wise: the caller hands
+``final_norm``, ``groups/sub_j/...`` stacked on a leading layer axis, the
+hybrid's ``shared`` block unstacked, weights ``(d_in, d_out)``), so
+conversion is leaf-wise: the caller hands
 the tree over as nested dicts of numpy arrays (``np.asarray`` of each JAX
 leaf) and gets torch tensors back.  Nothing here imports JAX.
 """

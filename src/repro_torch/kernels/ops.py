@@ -4,10 +4,13 @@ Registry flags (not bools) so backends stay pluggable: the serving stack
 routes through :func:`paged_attention`, training attention through
 :func:`flash_attention` and the Mamba2 blocks through :func:`ssd`, and the
 active implementation is swapped without touching the call sites.
+:func:`gemm` is the output-stationary product's entry point (the
+reference's ``kernels/ops.gemm``), on no model path.
 
 * ``"cuda"``  — the hand-written kernel (``kernels/paged_attention.py``,
-  ``kernels/flash_attention.py``, ``kernels/ssd_scan.py``); a CPU tensor
-  takes the kernel's plain version there, a CUDA tensor the kernel.
+  ``kernels/flash_attention.py``, ``kernels/ssd_scan.py``,
+  ``kernels/gemm_os.py``); a CPU tensor takes the kernel's plain version
+  there, a CUDA tensor the kernel.
 * ``"torch"`` — the plain version on any device (the yardstick the kernel
   is held against on the card).
 """
@@ -18,10 +21,35 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import gemm_os as gos
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels import ssd_scan as ss
 
+GEMM_IMPLS = ("cuda", "torch")
+_GEMM_IMPL = {"default": "cuda"}
+
+
+def set_gemm_impl(name: str) -> None:
+    """Select the GEMM ('cuda' output-stationary kernel / 'torch' plain)."""
+    if name not in GEMM_IMPLS:
+        raise ValueError(f"unknown GEMM impl {name!r}; "
+                         f"registered: {GEMM_IMPLS}")
+    _GEMM_IMPL["default"] = name
+
+
+def gemm(x: torch.Tensor, w: torch.Tensor, **kw) -> torch.Tensor:
+    """x: (M, K) @ w: (K, N) -> (M, N), float32 accumulation, in x's
+    dtype.  ``bm``/``bn``/``bk`` go to the kernel (``kernels/gemm_os.
+    gemm_os``); the plain version has no blocks and takes none."""
+    if _GEMM_IMPL["default"] == "torch":
+        if kw:
+            raise ValueError(f"the plain GEMM takes no blocks: {kw}")
+        return kref.gemm_ref(x, w)
+    return gos.gemm_os(x, w, **kw)
+
+
+# ---------------------------------------------------------------------------
 PAGED_IMPLS = ("cuda", "torch")
 _PAGED_IMPL = {"default": "cuda"}
 

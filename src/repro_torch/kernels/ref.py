@@ -12,6 +12,14 @@ import torch
 
 
 # ---------------------------------------------------------------------------
+def gemm_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x: (M, K) @ w: (K, N) -> (M, N) in x's dtype: the product in
+    float32 (float32 inputs, float32 sums), cast back once, as the
+    reference's ``kernels/ref.gemm_ref``."""
+    return (x.float() @ w.float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
 def inflate_pages_ref(pool: torch.Tensor, page_map: torch.Tensor,
                       qpool: Optional[torch.Tensor] = None,
                       scales: Optional[torch.Tensor] = None) -> torch.Tensor:

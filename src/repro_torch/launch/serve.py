@@ -15,9 +15,13 @@ cold pages spill lazily, per page, through the per-tenant ``--page-codec``
 ``--decode-kernel`` decodes in place over the page table through the
 paged-attention kernel (cold int8 pages may then stay compressed-resident);
 the int8 spill codec always runs through its pack/unpack kernels on the
-card.  ``--tenant-quota`` caps what each tenant may hold (see
-serve/quota.parse_quota_spec for the grammar); ``--tenants N`` spreads the
-synthetic requests over N tenant names.
+card.  A hybrid model (zamba2) pages its shared attention block's k/v and
+keeps each slot's Mamba2 conv / ssm state beside the pool, parked whole
+when its session is preempted.  The summary ends with the launches of
+each kernel wrapper during the run (0 on the CPU, where every wrapper
+takes its plain version).  ``--tenant-quota`` caps what each tenant may
+hold (see serve/quota.parse_quota_spec for the grammar); ``--tenants N``
+spreads the synthetic requests over N tenant names.
 """
 from __future__ import annotations
 
@@ -53,7 +57,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--max-len", type=int, default=None,
                     help="cache rows per slot (default: auto)")
     ap.add_argument("--requests", type=int, default=8)
-    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--prompt-len", default=[16],
+                    type=lambda v: [int(n) for n in v.split(",")],
+                    help="prompt tokens, or a comma-separated list of "
+                         "lengths cycled over the requests")
     ap.add_argument("--new-tokens", type=int, default=16)
     ap.add_argument("--stagger", type=int, default=0,
                     help="request i decodes new-tokens + i*stagger tokens")
@@ -126,7 +133,8 @@ def submit_requests(eng: Engine, args: argparse.Namespace,
         sessions.append(eng.submit(Request(
             uid=i,
             prompt=rng.integers(0, eng.model.cfg.vocab_size,
-                                size=(args.prompt_len,)).astype(np.int32),
+                                size=(args.prompt_len[i % len(
+                                    args.prompt_len)],)).astype(np.int32),
             max_new_tokens=args.new_tokens + i * args.stagger,
             priority=i % 3 if args.scheduler == "priority" else 0,
             tenant=f"t{i % max(1, args.tenants)}",
@@ -134,6 +142,16 @@ def submit_requests(eng: Engine, args: argparse.Namespace,
             on_token=lambda s, t: first_token_at.setdefault(
                 s.uid, time.perf_counter())))
     return sessions
+
+
+def kernel_launches() -> dict:
+    """The launch count of every serving kernel's wrapper."""
+    from repro_torch.kernels import offload_pack, paged_attention, ssd_scan
+    return {"paged_decode_attention":
+            paged_attention.paged_decode_attention.launches,
+            "ssd_scan": ssd_scan.ssd_scan.launches,
+            "int8_pack": offload_pack.int8_pack.launches,
+            "unpack": offload_pack.fp8_unpack.launches}
 
 
 def main(argv=None) -> Engine:
@@ -149,6 +167,7 @@ def main(argv=None) -> Engine:
     sync = torch.cuda.synchronize if model.device.type == "cuda" \
         else (lambda: None)
     first_token_at = {}
+    launches = kernel_launches()
     sync()
     t0 = time.perf_counter()
     sessions = submit_requests(eng, args, first_token_at)
@@ -174,6 +193,10 @@ def main(argv=None) -> Engine:
               f"/{report['kv_stash']['calls']}x, "
               f"fetch {fmt_bytes(fetch['wire_bytes'])}"
               f"/{fetch['calls']}x")
+    if report.get("slots", {}).get("parks"):
+        sl = report["slots"]
+        print(f"slots parked: {sl['parks']}x, "
+              f"{fmt_bytes(sl['park_bytes'])} of conv / ssm state")
     if report.get("pages"):
         p = report["pages"]
         print(f"pages[{p['num_pages']}x{p['page_size']}]: "
@@ -192,6 +215,8 @@ def main(argv=None) -> Engine:
               f"({dio['compressed_adopts']} adoptions)")
     if eng.quota is not None:
         print("tenants:", {t: u for t, u in eng.quota_report().items()})
+    print("kernel launches: " + ", ".join(
+        f"{k}={n - launches[k]}" for k, n in kernel_launches().items()))
     if hasattr(eng.scheduler, "miss_report"):
         print("deadlines:", eng.scheduler.miss_report())
     return eng

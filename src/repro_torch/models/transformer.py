@@ -1,15 +1,18 @@
-"""Layer stacks: the dense decoder and Mamba2 (SSM) paths and the paged-KV
-helpers.
+"""Layer stacks: the dense decoder, Mamba2 (SSM) and hybrid paths and the
+paged-KV helpers.
 
 The parameter tree is the reference's: ``embed``, ``final_norm`` and
 ``groups/sub_j/...`` with every group leaf stacked on a leading layer axis
 and weights stored ``(d_in, d_out)``; a dense sub-layer holds ``{ln1,
 attn/{wq,wk,wv,wo}, ln2, mlp/{w1,w2,w3}}``, an SSM sub-layer ``{ln1,
 ssm/{in_proj, conv_w, conv_b, A_log, D, dt_bias, norm_scale, out_proj}}``.
-A Python loop over the stacked layer axis replaces the reference's
-``lax.scan``.  Ported so far: the dense family (smollm, h2o-danube,
-command-r, starcoder2) and the pure SSM family (mamba2); the hybrid, MoE
-and encoder-decoder branches come with later slices.
+The hybrid (zamba2) keeps its one shared-weight transformer block
+unstacked in ``shared`` and applies it at every site; its caches stack
+that block's k/v over the sites as any group's.  A Python loop over the
+stacked layer axis replaces the reference's ``lax.scan``.  Ported so far:
+the dense family (smollm, h2o-danube, command-r, starcoder2), the pure
+SSM family (mamba2) and the hybrid's serving path (zamba2); hybrid
+training, MoE and the encoder-decoder branches come with later slices.
 """
 from __future__ import annotations
 
@@ -48,17 +51,15 @@ def arch_group(cfg: ModelConfig) -> Tuple[Tuple[str, ...], int]:
 
 
 def _require_ported(cfg: ModelConfig) -> None:
-    """Admit the families ported so far (dense decoders, pure SSM); name
-    the slice that ports each of the others."""
+    """Admit the families ported so far (dense decoders, pure SSM, the
+    SSM + shared-attention hybrid); name the slice that ports each of the
+    others."""
     group, _ = arch_group(cfg)
     if cfg.is_encoder_decoder or cfg.frontend != "none":
         later = "the encoder-decoder / VLM slice 3d"
-    elif cfg.is_hybrid:
-        later = "the hybrid slice 3b (shared block, paged pool beside " \
-            "slot-shaped SSM state)"
     elif cfg.is_moe:
         later = "the MoE slice 3c"
-    elif group in (("dense",), ("ssm",)):
+    elif cfg.is_hybrid or group in (("dense",), ("ssm",)):
         return
     else:
         later = "a later slice"
@@ -91,8 +92,10 @@ def run_sublayer(kind: str, params: dict, ctx: ModelContext,
                  cache_index: Optional[int] = None,
                  paged: Optional[dict] = None
                  ) -> Tuple[torch.Tensor, Optional[dict]]:
-    """One dense or SSM sub-layer; returns ``(x_out, cache)``.  An SSM
-    sub-layer writes its new conv / ssm state into ``cache`` in place."""
+    """One dense, shared (the hybrid's transformer block: the dense code
+    on the unstacked ``shared`` weights) or SSM sub-layer; returns
+    ``(x_out, cache)``.  An SSM sub-layer writes its new conv / ssm state
+    into ``cache`` in place."""
     cfg = ctx.cfg
     if kind == "ssm":
         h = apply_norm(cfg, params["ln1"], x)
@@ -101,7 +104,7 @@ def run_sublayer(kind: str, params: dict, ctx: ModelContext,
             for k, v in new.items():
                 cache[k].copy_(v)
         return x + y, cache
-    if kind != "dense":
+    if kind not in ("dense", "shared"):
         raise NotImplementedError(f"sub-layer kind {kind!r} is not ported")
     h = apply_norm(cfg, params["ln1"], x)
     a, cache = attention_block(params["attn"], ctx, h, positions,
@@ -122,28 +125,33 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, dtype,
     group, L = arch_group(cfg)
     D = cfg.d_model
 
-    def stacked_norm():
-        return tree.map(lambda t: t.expand(L, -1).clone(),
+    def stacked_norm(n):
+        return tree.map(lambda t: t.expand(n, -1).clone(),
                         norm_init(cfg, D, device))
 
-    def sublayer(kind):
+    def sublayer(kind, stack=L):
         if kind == "ssm":
-            return {"ln1": stacked_norm(),
+            return {"ln1": stacked_norm(stack),
                     "ssm": ssm_mod.mamba_init(gen, cfg, dtype, device,
-                                              stack=L)}
-        sub = {"ln1": stacked_norm(),
-               "attn": attn_init(gen, cfg, dtype, device, stack=L),
-               "mlp": mlp_init(gen, cfg, dtype, device, stack=L)}
+                                              stack=stack)}
+        sub = {"ln1": stacked_norm(stack),
+               "attn": attn_init(gen, cfg, dtype, device, stack=stack),
+               "mlp": mlp_init(gen, cfg, dtype, device, stack=stack)}
         if not cfg.parallel_block:
-            sub["ln2"] = stacked_norm()
+            sub["ln2"] = stacked_norm(stack)
         return sub
 
     p: Params = {"embed": embed_init(gen, cfg.padded_vocab, D, dtype, device),
                  "final_norm": norm_init(cfg, D, device),
                  "groups": {f"sub_{j}": sublayer(kind)
-                            for j, kind in enumerate(group)}}
+                            for j, kind in enumerate(group)
+                            if kind != "shared"}}
     if not cfg.tie_embeddings:
         p["unembed"] = embed_init(gen, cfg.padded_vocab, D, dtype, device)
+    if "shared" in group:
+        # one block's weights, applied at every site: a stack of one,
+        # unstacked
+        p["shared"] = tree.map(lambda t: t[0], sublayer("shared", stack=1))
     return p
 
 
@@ -178,6 +186,11 @@ def forward_train(params: Params, ctx: ModelContext, tokens: torch.Tensor,
     with slice 5."""
     _require_ported(ctx.cfg)
     cfg = ctx.cfg
+    if cfg.is_hybrid:
+        raise NotImplementedError(
+            f"{cfg.name}: hybrid training is not ported yet; it comes with "
+            "the rest of slice 3b (training attention through the flash "
+            f"forward at head_dim {cfg.resolved_head_dim}, ROADMAP A8)")
     group, n_groups = arch_group(cfg)
     x = embed_tokens(params, ctx, tokens)
 
@@ -215,7 +228,8 @@ def forward_serve(params: Params, ctx: ModelContext, tokens: torch.Tensor,
     x = embed_tokens(params, ctx, tokens)
     for layer in range(n_groups):
         for j, kind in enumerate(group):
-            p = tree.map(lambda t: t[layer], params["groups"][f"sub_{j}"])
+            p = (params["shared"] if kind == "shared" else
+                 tree.map(lambda t: t[layer], params["groups"][f"sub_{j}"]))
             c = caches.get(f"sub_{j}")
             c = {k: v[layer] for k, v in c.items()} if c is not None else None
             x, _ = run_sublayer(kind, p, ctx, x, positions, cache=c,
@@ -228,7 +242,8 @@ def forward_serve(params: Params, ctx: ModelContext, tokens: torch.Tensor,
 def init_caches(cfg: ModelConfig, batch: int, seq: int, dtype, device
                 ) -> Params:
     """Stacked caches matching forward_serve: (n_groups, B, S, K, hd) k/v
-    for a dense group, (n_groups, B, W-1, conv_dim) conv and (n_groups, B,
+    for a dense group and for the hybrid's shared block (one row of the
+    stack per site), (n_groups, B, W-1, conv_dim) conv and (n_groups, B,
     H, P, N) ssm state for an SSM group."""
     _require_ported(cfg)
     group, n_groups = arch_group(cfg)
@@ -269,26 +284,43 @@ def split_paged(caches: Params) -> Tuple[Params, Params]:
 
 
 def paged_pool(cfg: ModelConfig, num_pages: int, page_size: int, dtype,
-               device) -> Params:
-    """A zeroed page pool: each kv leaf is (n_groups, num_pages + 1, page,
-    K, hd) — ``num_pages`` real frames plus ONE trailing scratch frame (id
-    ``num_pages``) that absorbs writes routed away by the slot mask.
+               device, batch: int = 1) -> Tuple[Params, Params]:
+    """A zeroed page pool and the slot-shaped rest of the cache, as the
+    reference's ``paged_pool``: every group with k/v leaves is paged —
+    each leaf (n_groups, num_pages + 1, page, K, hd), ``num_pages`` real
+    frames plus ONE trailing scratch frame (id ``num_pages``) that absorbs
+    writes routed away by the slot mask — and every other leaf (the SSM
+    groups' conv / ssm state) stays one row per decode slot in
+    ``slot_tree`` ((n_groups, batch, ...), as :func:`init_caches`).
     Raises ``ValueError`` for an architecture with no k/v cache (pure SSM
     state is O(1) a session and gains nothing from paging)."""
     _require_ported(cfg)
     group, n_groups = arch_group(cfg)
-    if "dense" not in group:
-        raise ValueError("paged KV needs attention k/v caches; this "
-                         f"architecture's cache ({cfg.name}) has none")
     shape = (n_groups, num_pages + 1, page_size, cfg.num_kv_heads,
              cfg.resolved_head_dim)
-    return {"sub_0": {k: torch.zeros(shape, dtype=dtype, device=device)
-                      for k in PAGED_KEYS}}
+    pool, slot_tree = {}, {}
+    for j, kind in enumerate(group):
+        if kind == "ssm":
+            slot_tree[f"sub_{j}"] = {
+                k: v[None].repeat(n_groups, *([1] * v.ndim)) for k, v in
+                ssm_mod.init_ssm_cache(cfg, batch, dtype, device).items()}
+        else:
+            pool[f"sub_{j}"] = {k: torch.zeros(shape, dtype=dtype,
+                                               device=device)
+                                for k in PAGED_KEYS}
+    if not pool:
+        raise ValueError("paged KV needs attention k/v caches; this "
+                         f"architecture's cache ({cfg.name}) has none")
+    return pool, slot_tree
 
 
-def gather_pages(pool: Params, page_map: torch.Tensor) -> Params:
-    """Materialise the contiguous (G, B, pp*page, K, hd) decode view (a
-    copy) from the page pool; unowned positions read the scratch frame."""
+def gather_pages(pool: Params, slot_tree: Params, page_map: torch.Tensor
+                 ) -> Params:
+    """The contiguous decode view: each paged leaf's (G, B, pp*page, K, hd)
+    rows materialised from the pool (a copy; unowned positions read the
+    scratch frame), merged with the slot-shaped leaves of ``slot_tree``
+    (the storage itself, not a copy) into the tree ``forward_serve``
+    takes."""
     B, pp = page_map.shape
     flat = page_map.reshape(-1).long()
 
@@ -297,44 +329,45 @@ def gather_pages(pool: Params, page_map: torch.Tensor) -> Params:
         G, _, page, K, hd = g.shape
         return g.reshape(G, B, pp * page, K, hd)
 
-    return tree.map(one, pool)
+    gathered = tree.map(one, pool)
+    return {g: {**slot_tree.get(g, {}), **gathered.get(g, {})}
+            for g in set(pool) | set(slot_tree)}
 
 
 def scatter_pages(pool: Params, caches: Params, page_map: torch.Tensor
                   ) -> None:
-    """Write a (G, B, pp*page, K, hd) view's pages into the pool at
-    ``page_map`` (in place; non-writable positions route to scratch)."""
-    paged, _ = split_paged(caches)
+    """Write the paged leaves of a (G, B, pp*page, K, hd) view into the
+    pool at ``page_map`` (in place; non-writable positions route to
+    scratch), group by group of the pool."""
     B, pp = page_map.shape
     flat = page_map.reshape(-1).long()
-
-    def one(p, c):
-        G, B_, S, K, hd = c.shape
-        p[:, flat] = c.reshape(G, B_ * pp, S // pp, K, hd).to(p.dtype)
-
-    tree.map(one, pool, paged)
+    for g, leaves in pool.items():
+        for k, p in leaves.items():
+            c = caches[g][k]
+            G, B_, S, K, hd = c.shape
+            p[:, flat] = c.reshape(G, B_ * pp, S // pp, K, hd).to(p.dtype)
 
 
 def scatter_one_page(pool: Params, caches: Params, target: torch.Tensor,
                      row_start: int, page_size: int) -> None:
     """Write back only the page a decode step touched: ``target`` is its
     (B,) pool ids (scratch for slots outside the decode group)."""
-    paged, _ = split_paged(caches)
     tgt = target.long()
-
-    def one(p, c):
-        p[:, tgt] = c[:, :, row_start:row_start + page_size].to(p.dtype)
-
-    tree.map(one, pool, paged)
+    for g, leaves in pool.items():
+        for k, p in leaves.items():
+            p[:, tgt] = caches[g][k][:, :, row_start:row_start + page_size
+                                     ].to(p.dtype)
 
 
 def slot_pages(one_cache: Params, page_size: int, num_pages: int
                ) -> Tuple[List[Params], Params]:
-    """Chop a single-slot cache into page-shaped (G, page, K, hd) chunks,
-    returning ``(pages, rest)`` with the slot-shaped leaves in ``rest``."""
+    """Chop a single-slot cache into page-shaped (G, page, K, hd) chunks of
+    the groups with k/v leaves, returning ``(pages, rest)`` with the
+    slot-shaped leaves in ``rest``."""
     if page_size < 1 or num_pages < 1:
         raise ValueError(f"bad page chunking: {num_pages}x{page_size}")
     paged, rest = split_paged(one_cache)
+    paged = {g: sub for g, sub in paged.items() if sub}
     leaves = tree.leaves(paged)
     if leaves and num_pages * page_size > leaves[0].shape[2]:
         raise ValueError(f"{num_pages} pages of {page_size} rows exceed the "

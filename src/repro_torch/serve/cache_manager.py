@@ -19,6 +19,9 @@ Two storage models share that contract:
   session holds a page list (:class:`~repro_torch.serve.paging.PageTable`),
   pausing merely marks its pages *cold*, and spill happens lazily per page
   through a per-tenant codec, only when an allocation needs the frame.
+  A hybrid model's recurrent (conv / ssm) state has no sequence axis to
+  page: it stays one row per slot beside the pool (``slot_tree``) and is
+  parked whole on preemption, as the monolithic manager parks a slot.
 
 Storage is updated in place (the reference donates its buffers to jit).
 """
@@ -93,6 +96,8 @@ class KVCacheManager:
 
         self.slots: List[Optional[Session]] = [None] * self.batch
         self._spilled: Dict[int, _SpilledSlot] = {}
+        self._slot_parks = 0              # slots parked whole, and bytes
+        self._slot_park_bytes = 0
         self._init_storage()
 
         # secondary tier for cold slots/pages (None: preemption unsupported)
@@ -184,6 +189,9 @@ class KVCacheManager:
 
     def _park_slot(self, caches, sess: Session) -> None:
         leaves, paths = tree.flatten(tfm.slot_cache(caches, sess.slot))
+        self._slot_parks += 1
+        self._slot_park_bytes += sum(x.numel() * x.element_size()
+                                     for x in leaves)
         payloads = [self.spill_runtime.stash(
             x, TransferHints(dtype=x.dtype, batch_dim=1, name="kv_spill"),
             direction="kv_stash") for x in leaves]
@@ -256,6 +264,9 @@ class PagedKVCacheManager(KVCacheManager):
     * ``decode_kernel``: decode runs in place over the pool through the
       paged-attention kernel, and a cold int8 page may resume *compressed*
       into a side pool that the kernel dequantises in its K/V load.
+    * A hybrid model's slot-shaped leaves (``slot_tree``: the SSM groups'
+      conv / ssm state) sit beside the pool, one row per decode slot, and
+      are parked whole through the spill tier when their session pauses.
     * Prefix sharing (the reference's radix index) is not ported yet.
 
     A page's bytes never depend on the decode path: a compressed-resident
@@ -297,8 +308,9 @@ class PagedKVCacheManager(KVCacheManager):
         if not 1 <= num <= full:
             raise ValueError(f"pages must be in [1, {full}]: {num}")
         m = self.model
-        self.pool = tfm.paged_pool(m.cfg, num, self.page_size, m.dtype,
-                                   m.device)
+        self.pool, self.slot_tree = tfm.paged_pool(
+            m.cfg, num, self.page_size, m.dtype, m.device, batch=self.batch)
+        self._has_slot_leaves = bool(tree.leaves(self.slot_tree))
         self.table = PageTable(num, self.page_size)
         # a dying frame (evicted / freed) takes its compressed page back
         # to raw bytes first (see the class docstring)
@@ -501,11 +513,13 @@ class PagedKVCacheManager(KVCacheManager):
         self._pmap_dev = None
 
     # ------------------------------------------------------------------
-    # pause / resume: pages go cold in place
+    # pause / resume: pages go cold in place; slot-shaped leaves park whole
     def pause(self, sess: Session) -> None:
         assert sess.slot is not None, sess
         assert self.spill_runtime is not None, \
             "PagedKVCacheManager(spill=None) cannot preempt sessions"
+        if self._has_slot_leaves:
+            self._park_slot(self.slot_tree, sess)
         self.table.mark_cold(sess.uid)
         self._clear_slot(sess)
         self._pmap_dev = None
@@ -513,7 +527,9 @@ class PagedKVCacheManager(KVCacheManager):
     def resume(self, sess: Session, slot: int) -> None:
         """Re-bind a paused session: surviving pages readmit copy-free,
         evicted ones are fetched (and decoded, or adopted compressed) into
-        fresh frames."""
+        fresh frames, and a parked slot-shaped state is fetched into
+        ``slot`` — after every page, so a pool too hot to re-home them
+        leaves the state parked."""
         uid = sess.uid
         self.table.mark_hot(uid)
         try:
@@ -542,6 +558,9 @@ class PagedKVCacheManager(KVCacheManager):
             # retries later
             self.table.mark_cold(uid)
             raise
+        if uid in self._spilled:
+            tfm.merge_slot_cache(self.slot_tree, self._unpark_slot(sess),
+                                 slot)
         self.table.note_resumed(uid)
         self.bind(slot, sess, sess.length)
 
@@ -585,6 +604,10 @@ class PagedKVCacheManager(KVCacheManager):
             "readmits_free": self.table.readmits_free,
             "adoptions": self.table.adoptions,
             "shared_binds": self.table.shared_binds,
+        }
+        report["slots"] = {
+            "parks": self._slot_parks,
+            "park_bytes": self._slot_park_bytes,
         }
         report["decode_io"] = {
             "in_place": self.decode_kernel,

@@ -21,7 +21,11 @@ Decode runs one batched step per unique cache length (the paged kernel
 takes one ``cache_index`` per call).  With ``decode_kernel`` the step's
 K/V row is written straight into its page frame and attention runs over
 the pool through the block table; otherwise the slots' pages are gathered
-into a contiguous view and the touched page is scattered back.
+into a contiguous view and the touched page is scattered back.  Every
+slot decodes, so every path puts back what the step changed for the
+slots outside its length group: row ``length`` of their k/v (monolithic
+slots; paged, those rows land in the scratch frame) and the whole of
+their recurrent conv / ssm state (the reference's ``_masked_merge``).
 """
 from __future__ import annotations
 
@@ -131,8 +135,10 @@ class Engine:
     def _prefill(self, toks: torch.Tensor, slot: int,
                  sess: Session) -> torch.Tensor:
         """Prefill one prompt from a zeroed single-slot cache (a reused
-        slot's old rows must not leak into the new session), then write the
-        slot — paged: its pages — into the storage."""
+        slot's old rows, and its previous occupant's recurrent state, must
+        not leak into the new session), then write the slot — paged: its
+        pages, and its slot-shaped state into row ``slot`` beside them —
+        into the storage."""
         cache = self.cache
         one = self.model.init_cache(1, self.max_len)
         pos = self._positions(toks.shape[1], 0, 1)
@@ -142,16 +148,43 @@ class Engine:
             row = torch.as_tensor(cache.page_row_for(sess),
                                   device=self.device)
             tfm.scatter_pages(cache.pool, one, row)
+            tfm.merge_slot_cache(cache.slot_tree, tfm.split_paged(one)[1],
+                                 slot)
         else:
             tfm.merge_slot_cache(cache.caches, one, slot)
         return logits[0]
 
+    def _saved_outside(self, caches, mask: np.ndarray,
+                       length: int) -> list:
+        """Copies of what a decode step at ``length`` must not change for
+        the slots outside ``mask``: row ``length`` of their k/v leaves,
+        the whole of every other (slot-shaped) leaf; :meth:`_restore` puts
+        them back."""
+        leaves, paths = tree.flatten(caches)
+        if not leaves:
+            return []
+        keep = torch.as_tensor(np.flatnonzero(~mask), device=self.device)
+        where = [(slice(None), keep, length) if path[-1] in tfm.PAGED_KEYS
+                 else (slice(None), keep) for path in paths]
+        return [(c, w, c[w].clone()) for c, w in zip(leaves, where)]
+
+    @staticmethod
+    def _restore(saved: list) -> None:
+        for c, w, s in saved:
+            c[w] = s
+
     def _decode(self, tok: torch.Tensor, length: int,
                 mask: np.ndarray) -> torch.Tensor:
         """One decode step of every slot at cache position ``length``; only
-        the ``mask`` slots' storage takes the step's K/V row."""
+        the ``mask`` slots' storage takes the step's K/V row and its new
+        recurrent state."""
         cache = self.cache
         pos = self._positions(1, length, self.batch)
+        # the slots outside the group decode a dummy token: paged, its k/v
+        # row lands in the scratch frame; what it writes into their slots
+        # (monolithic k/v row ``length``, recurrent state) is put back
+        saved = self._saved_outside(
+            cache.slot_tree if cache.paged else cache.caches, mask, length)
         if cache.paged and cache.decode_kernel:
             page = cache.page_size
             wp, row_off = divmod(length, page)
@@ -168,17 +201,17 @@ class Engine:
                               kq=cache.cpool[g]["k"], vq=cache.cpool[g]["v"],
                               ks=cache.cscale[g]["k"], vs=cache.cscale[g]["v"])
                       for g in cache.pool}
+            caches.update(cache.slot_tree)
             logits, _ = self.model.decode_step(
                 self.params, tok, pos, caches, length,
                 paged=dict(page_map=cache.page_map(),
                            write_pid=torch.as_tensor(
                                write, dtype=torch.long, device=self.device),
                            row_off=row_off))
-            return logits
-        if cache.paged:
+        elif cache.paged:
             pm = cache.page_map()
             cache.note_decode(length, int(mask.sum()))
-            view = tfm.gather_pages(cache.pool, pm)
+            view = tfm.gather_pages(cache.pool, cache.slot_tree, pm)
             logits, view = self.model.decode_step(self.params, tok, pos,
                                                   view, length)
             # one row written per slot -> write back only its page
@@ -188,20 +221,10 @@ class Engine:
                 cache.scratch_id)
             tfm.scatter_one_page(cache.pool, view, target,
                                  wp * cache.page_size, cache.page_size)
-            return logits
-        # monolithic slots: the step writes row ``length`` of every k/v
-        # slot and the whole recurrent (conv / ssm) state of every slot;
-        # the slots outside this length group get theirs back (the
-        # reference's ``_masked_merge``), k/v by that row only
-        keep = torch.as_tensor(np.flatnonzero(~mask), device=self.device)
-        leaves, paths = tree.flatten(cache.caches)
-        where = [(slice(None), keep, length) if path[-1] in tfm.PAGED_KEYS
-                 else (slice(None), keep) for path in paths]
-        saved = [c[w].clone() for c, w in zip(leaves, where)]
-        logits, _ = self.model.decode_step(self.params, tok, pos,
-                                           cache.caches, length)
-        for c, w, s in zip(leaves, where, saved):
-            c[w] = s
+        else:
+            logits, _ = self.model.decode_step(self.params, tok, pos,
+                                               cache.caches, length)
+        self._restore(saved)
         return logits
 
     # ------------------------------------------------------------------

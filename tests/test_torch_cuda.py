@@ -351,3 +351,91 @@ def test_mamba2_engine_kernel_matches_plain(dev):
     assert got == want
     assert report["kv_stash"]["calls"] > 0
     assert ssd_scan.launches - before == 2 * len(reqs)   # 2 layers each
+
+
+# ---------------------------------------------------------------------------
+# output-stationary GEMM
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n,blocks", [
+    (128, 128, 128, None), (256, 512, 384, None), (256, 512, 256, (128, 128,
+                                                                  128)),
+    (192, 320, 448, (64, 64, 32)), (384, 96, 640, (128, 64, 48)),
+    (256, 1024, 128, (64, 128, 64))])
+def test_gemm_os_matches_plain(dev, dtype, m, k, n, blocks):
+    """Kernel == plain version (the float32 product rounded once): float32
+    within 1e-5 of the largest output (the same products summed in other
+    orders), bfloat16 within one bf16 ulp of it (the float32 sums differ
+    in their last bits, so a rounding can tip).  Non-square shapes, so w
+    read as (n, k) cannot pass."""
+    from repro_torch.kernels.gemm_os import gemm_os
+    g = torch.Generator(device="cpu").manual_seed(m + k + n)
+    x = torch.randn((m, k), generator=g).to(dev, dtype)
+    w = torch.randn((k, n), generator=g).to(dev, dtype)
+    kw = {} if blocks is None else dict(zip(("bm", "bn", "bk"), blocks))
+    before = gemm_os.launches
+    got = gemm_os(x, w, **kw)
+    assert gemm_os.launches == before + 1
+    want = ref.gemm_ref(x, w)
+    assert got.dtype == dtype and got.shape == (m, n)
+    tol = (1e-5 * want.abs().max().item() if dtype == torch.float32
+           else _bf16_ulps(want.float(), 1))
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+def test_gemm_os_rejects_what_it_cannot_run(dev):
+    from repro_torch.kernels.gemm_os import gemm_os
+    x = torch.randn((128, 256), device=dev)
+    w = torch.randn((256, 128), device=dev)
+    with pytest.raises(ValueError):          # non-contiguous w
+        gemm_os(x, w.t().contiguous().t())
+    with pytest.raises(TypeError):           # mixed dtypes
+        gemm_os(x, w.bfloat16())
+    with pytest.raises(TypeError):           # a dtype the kernel lacks
+        gemm_os(x.half(), w.half())
+    with pytest.raises(ValueError):          # w on the CPU
+        gemm_os(x, w.cpu())
+    with pytest.raises(ValueError):          # a tile the kernel lacks
+        gemm_os(x, w, bm=128, bn=128, bk=256)
+    shifted = torch.empty(x.numel() + 2, device=dev)[2:].view_as(x)
+    shifted.copy_(x)                         # contiguous, 8 bytes off
+    with pytest.raises(ValueError):
+        gemm_os(shifted, w)
+
+
+def test_zamba2_engine_kernels_match_plain(dev):
+    """The reduced zamba2 on the card over an overcommitted page pool
+    (int8 spill, fair preemption, in-place kernel decode): with the paged
+    decode and the scan on their kernels it streams what their plain
+    versions do, and the slots' SSM state parks and comes back."""
+    cfg = ARCHS["zamba2-2.7b"].reduced(dtype="float32", num_layers=4,
+                                       head_dim=80, num_kv_heads=4)
+    model = Model(cfg, device=dev)
+    params = model.init(0)
+    rng = np.random.default_rng(3)
+    reqs = [(i, rng.integers(0, 512, size=(n,)).astype(np.int32), 8)
+            for i, n in enumerate((7, 20, 13, 33, 9))]
+
+    def streams(impl):
+        ops.set_paged_impl(impl)
+        ops.set_ssd_impl(impl)
+        try:
+            eng = Engine(model, params, batch=2, max_len=64, page_size=8,
+                         pages=12, spill="host", decode_kernel=True,
+                         scheduler=FairScheduler(quantum=3),
+                         quota=TenantQuota(codec="int8"))
+            for uid, prompt, n in reqs:
+                eng.submit(Request(uid=uid, prompt=prompt, max_new_tokens=n))
+            done = sorted(eng.run(), key=lambda r: r.uid)
+        finally:
+            ops.set_paged_impl("cuda")
+            ops.set_ssd_impl("cuda")
+        return [r.out_tokens for r in done], eng.traffic_report()
+
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    want, _ = streams("torch")
+    before = ssd_scan.launches
+    got, report = streams("cuda")
+    assert got == want
+    assert report["slots"]["parks"] > 0
+    assert report["decode_io"]["compressed_adopts"] > 0
+    assert ssd_scan.launches - before == 4 * len(reqs)   # 4 blocks each

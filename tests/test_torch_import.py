@@ -100,3 +100,14 @@ def test_ssm_slice_modules_are_covered(module):
     """The SSM slice's modules are among those the import checks above
     walk (no jax / repro import, importable without a card)."""
     assert module in _modules()
+
+
+@pytest.mark.parametrize("module", [
+    "repro_torch.kernels.gemm_os", "repro_torch.models.transformer",
+    "repro_torch.serve.cache_manager", "repro_torch.serve.engine",
+    "repro_torch.launch.serve"])
+def test_gemm_and_hybrid_slice_modules_are_covered(module):
+    """The modules of the GEMM and hybrid serving slice are among those the
+    import checks above walk (no jax / repro import, importable without a
+    card)."""
+    assert module in _modules()

@@ -436,9 +436,14 @@ def test_bf16_carry_over_keeps_ssm_f32_leaves():
                                          ("mixtral-8x7b", "3c"),
                                          ("whisper-medium", "3d")])
 def test_unported_families_name_their_slice(arch, slice_):
+    """What is not ported raises and names its slice: MoE and the
+    encoder-decoder at init, the hybrid (served since slice 3b) when it
+    trains."""
     cfg = TARCHS[arch].reduced(dtype="float32")
+    m = Model(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match=f"slice {slice_}"):
-        Model(cfg, device="cpu").init(0)
+        m.loss_fn(m.init(0), to_device(
+            SyntheticLM(cfg, batch=1, seq=16, seed=0).batch_at(0), "cpu"))
 
 
 def _cli(module, *args):
