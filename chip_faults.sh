@@ -14,7 +14,7 @@ cd "$(dirname "$0")"
 CSRC=src/repro_torch/kernels/csrc
 MAIN='check_main_path_logits() check_paged(torch.device(0),{})'
 KERNEL='check_paged(torch.device(0),{})'
-FLASH='check_flash(torch.device(0),{}) check_train_flash_vs_plain()'
+FLASH='check_flash(torch.device(0),{},{}) check_train_flash_vs_plain()'
 CODEC='check_codec(torch.device(0),{},{})'
 SSD='check_ssd(torch.device(0),{},{})'
 SSD_SERVE="$SSD check_ssm_serve_logits()"
@@ -62,13 +62,28 @@ fault p_not_rounded $CSRC/paged_attention.cu \
 fault dequant_not_rounded $CSRC/paged_attention.cu \
   's/round_to<T>((float)kq\[off\] \* sk)/((float)kq[off] * sk)/; s/round_to<T>((float)vq\[off\] \* sv)/((float)vq[off] * sv)/' \
   "$KERNEL"
-# flash: query head h reads kv head h % K instead of h / G
+# flash (float32, CUDA cores): query head h reads kv head h % K instead of
+# h / G
 fault flash_kv_head_mod $CSRC/flash_attention.cu \
   's|const int kh = h / (a.H / a.K);|const int kh = h % a.K;|' \
   "$FLASH"
-# flash: the causal mask shifted by one (the diagonal masked out)
+# flash (float32, CUDA cores): the causal mask shifted by one (the diagonal
+# masked out)
 fault flash_causal_shift $CSRC/flash_attention.cu \
   's/ok = ok \&\& q_pos >= k_pos;/ok = ok \&\& q_pos > k_pos;/' \
+  "$FLASH"
+# flash (bfloat16, tensor cores): query head h reads kv head h % K
+fault flash_mma_kv_head_mod $CSRC/flash_attention.cu \
+  's|const int kvh = h / (a.H / a.K);|const int kvh = h % a.K;|' \
+  "$FLASH"
+# flash (bfloat16): the causal mask shifted by one
+fault flash_mma_causal_shift $CSRC/flash_attention.cu \
+  's/vis = vis \&\& qp >= kp;/vis = vis \&\& qp > kp;/' \
+  "$FLASH"
+# flash (bfloat16): p left unrounded before the PV product -- its low 16
+# bits cut off as it is packed, where the reference rounds it to bf16
+fault flash_mma_p_unrounded $CSRC/flash_attention.cu \
+  's/__floats2bfloat162_rn(lo, hi)/__halves2bfloat162(__float2bfloat16_rz(lo), __float2bfloat16_rz(hi))/' \
   "$FLASH"
 # codecs: the fp8 scale as absmax times the rounded reciprocal of 448
 fault fp8_scale_reciprocal $CSRC/offload_pack.cu \
@@ -87,14 +102,23 @@ fault ssd_no_chunk_decay $CSRC/ssd_scan.cu \
 fault ssd_group_mod $CSRC/ssd_scan.cu \
   's|const int g = h / (H / G);|const int g = h % G;|' \
   "$SSD"
-# GEMM: the last K slab never consumed
+# GEMM (float32, CUDA cores): the last K slab never consumed
 fault gemm_drop_last_slab $CSRC/gemm_os.cu \
   's/for (int t = 0; t < n_k; ++t) {/for (int t = 0; t < n_k - 1; ++t) {/' \
   "$GEMM"
-# GEMM: w read with row stride K, as if stored (N, K) -- w indexed (n, k)
-# instead of (k, n); a square product cannot tell
+# GEMM (float32): w read with row stride K, as if stored (N, K) -- w
+# indexed (n, k) instead of (k, n); a square product cannot tell
 fault gemm_w_stride_k $CSRC/gemm_os.cu \
   's/wb + (size_t)(k0 + r) \* N + col/wb + (size_t)(k0 + r) * K + col/' \
+  "$GEMM"
+# GEMM (bfloat16, tensor cores): the last K stage never consumed
+fault gemm_tc_drop_last_stage $CSRC/gemm_os.cu \
+  's/for (int ks = 0; ks < n_k; ++ks) {/for (int ks = 0; ks < n_k - 1; ++ks) {/' \
+  "$GEMM"
+# GEMM (bfloat16): B's transpose mode flipped -- w's N-major boxes read as
+# K-major, which only a product of a symmetric w would survive
+fault gemm_tc_b_major_flipped $CSRC/gemm_os.cu \
+  's/constexpr int kTransB = 1;/constexpr int kTransB = 0;/' \
   "$GEMM"
 # engine: the paged decode no longer puts back the conv / ssm state of the
 # slots outside its length group (they advance by the dummy token)

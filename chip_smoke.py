@@ -10,14 +10,18 @@ Phases (each failure exits non-zero; nothing is caught and carried on):
 3. kernels  — holds each kernel against its plain PyTorch version on the
               card at the main paths' shapes (zamba2-2.7b's too: the paged
               decode at head_dim 80 without GQA, the scan at 80 heads of
-              state 64, the int8 codec on 80-column page rows) and times
-              kernel, plain version, the least time the card could take
-              (bound) and, for the paged decode, the flash forward and the
-              GEMM, one PyTorch library call as a yardstick.  The GEMM
+              state 64, the int8 codec on 80-column page rows, the flash
+              forward at head_dim 80) and times kernel, plain version, the
+              least time the card could take (bound) and, for the paged
+              decode, the flash forward and the GEMM, one PyTorch library
+              call as a yardstick.  The flash forward and the GEMM run
+              bfloat16 on the tensor cores and float32 on the CUDA cores;
+              both paths are held to their plain versions.  The GEMM
               (``ops.gemm``, on no model path) is held to its plain
-              version over the reference's sweep, the microbench's shape
-              and zamba2's MLP at 4096 tokens, then driven once, counted,
-              through its entry point: that MLP's two products.
+              version over the reference's sweep, the microbench's shape,
+              every tile of both paths and zamba2's MLP at 4096 tokens
+              (blocks a path lacks must be refused), then driven once,
+              counted, through its entry point: that MLP's two products.
 4. serve    — serves full-width smollm-135m (bf16, random weights from a
               seed) through ``repro_torch.launch.serve``: paged KV, in-place
               kernel decode, int8 spill codec through its kernels, an
@@ -191,8 +195,9 @@ SSM_TRAIN_F32_TOL = {"loss": 5e-3, "leaf_norm": 5e-2}
 # same products in other orders (limit 1e-5); bfloat16 rounds two float32
 # sums that differ in their last bits, so one rounding can tip by one bf16
 # ulp of the output (limit: one ulp of the largest output).  On an H100
-# (700 W) the worst case read 0.45 (f32, 12 cases) and 0.50 (bf16, 13) of
-# its limit; the last K slab dropped reads 24.0 against 4.6e-4
+# (700 W) the worst case read 0.46 (f32, 16 cases, CUDA cores) and 0.50
+# (bf16, 17, tensor cores) of its limit; the last K slab dropped reads 24.0
+# (f32) and the last K stage 33.6 (bf16) on 128^3 against 4.6e-4 and 0.25
 GEMM_F32_RTOL = 1e-5
 # zamba2's MLP at a 4096-token batch: d_model 2560, d_ff 10240
 GEMM_MLP = ((4096, 2560, 10240), (4096, 10240, 2560))
@@ -329,6 +334,49 @@ def paged_bytes_ops(args, idx):
     return nbytes, ops
 
 
+def paged_rounding_probe(dev, dtype):
+    """One paged decode whose output shows whether p and the dequantised
+    side-pool values are rounded to the pool's dtype before the PV product
+    (the reference's casts): one sequence of 8 pages of 16 rows, one head
+    of 64, all 128 rows visible.  Pages 0-3: keys score 0 or -2^-10
+    alternately, values +1 and -1 alternately; pages 4-7 score 0, pages
+    4-5 in the int8 side pool with values 100 x 0.013 (1.3; 1.296875 in
+    bfloat16), pages 6-7 raw at -1.296875.  In bfloat16 the reference's
+    p (~2^-7 on every row) and values cancel exactly: its output is 0;
+    p left unrounded reads ~2.4e-4, the values left unrounded ~7.8e-4.
+    Returns (args, side pool, cache_index)."""
+    page, hd, P = 16, 64, 7                  # frame 6: the scratch frame
+    q = torch.zeros((1, 1, 1, hd), device=dev)
+    q[..., 0] = 1.0
+    kp = torch.zeros((P, page, 1, hd), device=dev)
+    kp[:4, 1::2, :, 0] = -(2.0 ** -7)       # times the scale 1/8: -2^-10
+    vp = torch.ones((P, page, 1, hd), device=dev)
+    vp[:4, 1::2] = -1.0
+    vp[4:6] = -1.296875
+    pm = torch.tensor([[0, 1, 2, 3, P, P + 1, 4, 5]], dtype=torch.int32,
+                      device=dev)
+    kq = torch.zeros((2, page, 1, hd), dtype=torch.int8, device=dev)
+    side = dict(kq_pool=kq, vq_pool=torch.full_like(kq, 100),
+                k_scale=torch.ones((2, 1), device=dev),
+                v_scale=torch.full((2, 1), 0.013, device=dev))
+    return [t.to(dtype) for t in (q, kp, vp)] + [pm], side, 8 * page - 1
+
+
+def paged_library(args, side, idx):
+    """Yardstick of the paged decode (not used by the port): inflate the
+    page map, int8 side frames included, and one SDPA call over the rows
+    up to ``idx``."""
+    from repro_torch.kernels import ref
+    q, kp, vp, pm = args
+    k = ref.inflate_pages_ref(kp, pm, side["kq_pool"], side["k_scale"])
+    v = ref.inflate_pages_ref(vp, pm, side["vq_pool"], side["v_scale"])
+    mask = (torch.arange(k.shape[1], device=q.device) <= idx)[None, None,
+                                                                 None]
+    return torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        attn_mask=mask, enable_gqa=True)
+
+
 def check_paged(dev, results):
     from repro_torch.kernels import ref
     from repro_torch.kernels.paged_attention import paged_decode_attention
@@ -357,11 +405,20 @@ def check_paged(dev, results):
                     fail(f"paged decode {dtype} cache_index {idx}: max abs "
                          f"err {e} > {tol}")
                 err, share = max(err, e), max(share, e / tol)
+        args, side, idx = paged_rounding_probe(dev, dtype)
+        got = paged_decode_attention(*args, idx, **side)
+        want = ref.paged_decode_attention_ref(*args, idx, **side)
+        tol = 2e-5 if dtype == torch.float32 else bf16_ulps(want, 2)
+        e = (got.float() - want.float()).abs().max().item()
+        if e > tol:
+            fail(f"paged decode {dtype} rounding probe: max abs err {e} > "
+                 f"{tol}")
+        err = max(err, e)
         max_err[dtype] = err
         limit = "2e-5" if dtype == torch.float32 else "2 bf16 ulps of |out|"
         print(f"  paged_decode_attention {str(dtype)[6:]}: max abs err "
-              f"{err:.3g}, at most {share:.2f} of the limit ({limit})",
-              flush=True)
+              f"{err:.3g}, at most {share:.2f} of the limit ({limit}); "
+              f"the rounding probe {e:.3g}", flush=True)
     # timing at the main path's pool: 8 slots x 16 pages of 16 rows, 64
     # frames + scratch, a 64-frame side pool, 192 rows visible (the
     # longest session: 128 prompt + 64 new)
@@ -375,18 +432,7 @@ def check_paged(dev, results):
     plain = device_ms(lambda: ref.paged_decode_attention_ref(
         *args, idx, **side))
 
-    def library():
-        # yardstick: inflate the page map, one SDPA call (not used by the
-        # port)
-        q, kp, vp, pm = args
-        k = ref.inflate_pages_ref(kp, pm, side["kq_pool"], side["k_scale"])
-        v = ref.inflate_pages_ref(vp, pm, side["vq_pool"], side["v_scale"])
-        mask = (torch.arange(k.shape[1], device=dev) <= idx)[None, None, None]
-        return torch.nn.functional.scaled_dot_product_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            attn_mask=mask, enable_gqa=True)
-
-    lib = device_ms(library)
+    lib = device_ms(lambda: paged_library(args, side, idx))
     nbytes, ops = paged_bytes_ops(args, idx)
     b_ms, b_by = bound_ms(nbytes, ops, PEAK_BF16_FLOPS)
     results["paged_decode_attention"] = dict(
@@ -518,61 +564,118 @@ def flash_bytes_ops(q, k, causal, window):
     return nbytes, 4.0 * d * B * H * int(vis.sum())
 
 
-def check_flash(dev, results):
-    """The flash forward against its plain twin: at the training shape
-    (B 8, H 9, K 3, S = T = 1024, d 64, causal) in f32 (2e-5) and bf16 (2
-    bf16 ulps of each case's largest |out|), plus window 256 and a ragged
-    S = T = 1000; timed at the training shape in bf16 beside SDPA."""
+def flash_rounding_probe(dev, dtype):
+    """q, k, v whose output shows whether p is rounded to v's dtype before
+    the PV product: every key scores 0 or -2^-10 (p = 1 or 0.99902),
+    values +1 and -1 alternately.  bfloat16 rounds 0.99902 to 1.0, so the
+    reference's output is exactly 0; p left unrounded (or cut to bf16
+    rather than rounded) gives 4.9e-4 (0.002).  In float32 p is not
+    rounded: 4.9e-4 on both sides."""
+    B, H, S, T, d = 1, 2, 64, 128, 64
+    q = torch.zeros((B, H, S, d), device=dev)
+    q[..., 0] = 1.0
+    k = torch.zeros((B, 1, T, d), device=dev)
+    k[:, :, 1::2, 0] = -(2.0 ** -7)       # times the scale 1/8: -2^-10
+    v = torch.ones((B, 1, T, d), device=dev)
+    v[:, :, 1::2] = -1.0
+    return tuple(t.to(dtype) for t in (q, k, v))
+
+
+# flash forward cases (B, H, K, S, T, d, causal, window): smollm's
+# training shape, a window, ragged S; head_dim 80 (zamba2-2.7b) at its
+# attention shape (H = K = 32), ragged with a window, non-causal with S !=
+# T, a short window; head dims 32 and 128
+FLASH_CASES = [(8, 9, 3, 1024, 1024, 64, True, 0),
+               (8, 9, 3, 1024, 1024, 64, True, 256),
+               (8, 9, 3, 1000, 1000, 64, True, 0),
+               (2, 32, 32, 1024, 1024, 80, True, 0),
+               (2, 8, 2, 1000, 1000, 80, True, 256),
+               (2, 9, 3, 200, 330, 80, False, 0),
+               (1, 4, 4, 77, 77, 80, True, 16),
+               (2, 9, 3, 200, 330, 32, False, 0),
+               (2, 9, 3, 256, 256, 128, True, 0)]
+
+
+def check_flash(dev, results, others):
+    """The flash forward against its plain twin over ``FLASH_CASES`` and
+    the rounding probe, in f32 (2e-5) and bf16 (2 bf16 ulps of each case's
+    largest |out|); timed in bf16 beside SDPA at the training shape (B 8,
+    H 9, K 3, S = T = 1024, d 64, causal) and at zamba2's (B 8, H = K =
+    32, d 80)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention_fwd
     g = torch.Generator(device=dev).manual_seed(6)
     max_err = {}
     for dtype in (torch.float32, torch.bfloat16):
         err, share = 0.0, 0.0
-        for S, window in ((1024, 0), (1024, 256), (1000, 0)):
-            q = torch.randn((8, 9, S, 64), generator=g, device=dev)
-            k = torch.randn((8, 3, S, 64), generator=g, device=dev)
-            v = torch.randn((8, 3, S, 64), generator=g, device=dev)
-            q, k, v = (t.to(dtype) for t in (q, k, v))
-            got = flash_attention_fwd(q, k, v, causal=True, window=window)
+        for case in FLASH_CASES + ["probe"]:
+            if case == "probe":
+                q, k, v = flash_rounding_probe(dev, dtype)
+                causal, window = False, 0
+            else:
+                B, H, K, S, T, d, causal, window = case
+                q = torch.randn((B, H, S, d), generator=g, device=dev)
+                k = torch.randn((B, K, T, d), generator=g, device=dev)
+                v = torch.randn((B, K, T, d), generator=g, device=dev)
+                q, k, v = (t.to(dtype) for t in (q, k, v))
+            got = flash_attention_fwd(q, k, v, causal=causal, window=window)
             torch.cuda.synchronize()
-            want = ref.flash_attention_ref(q, k, v, causal=True,
+            want = ref.flash_attention_ref(q, k, v, causal=causal,
                                            window=window)
             if not torch.isfinite(got.float()).all():
-                fail(f"flash forward not finite (S {S}, window {window})")
+                fail(f"flash forward not finite ({case})")
             tol = 2e-5 if dtype == torch.float32 else bf16_ulps(want, 2)
             e = (got.float() - want.float()).abs().max().item()
             if e > tol:
-                fail(f"flash_attention_fwd {dtype} S {S} window {window}: "
-                     f"max abs err {e} > {tol}")
-            err, share = max(err, e), max(share, e / tol)
+                fail(f"flash_attention_fwd {dtype} {case}: max abs err {e} "
+                     f"> {tol}")
+            err = max(err, e)
+            share = max(share, e / tol if tol else 0.0)
         max_err[dtype] = err
         limit = "2e-5" if dtype == torch.float32 else "2 bf16 ulps of |out|"
         print(f"  flash_attention_fwd {str(dtype)[6:]}: max abs err "
-              f"{err:.3g}, at most {share:.2f} of the limit ({limit}) "
-              "over causal, window 256 and ragged S = 1000", flush=True)
-    q = torch.randn((8, 9, 1024, 64), generator=g, device=dev)
-    k = torch.randn((8, 3, 1024, 64), generator=g, device=dev)
-    v = torch.randn((8, 3, 1024, 64), generator=g, device=dev)
-    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+              f"{err:.3g}, at most {share:.2f} of the limit ({limit}) over "
+              f"{len(FLASH_CASES)} cases (d 32, 64, 80, 128; causal, "
+              "windowed, ragged, non-causal) and the p-rounding probe",
+              flush=True)
 
-    def kernel():
-        return flash_attention_fwd(q, k, v, causal=True)
+    import ctypes
+    from repro_torch.kernels import build
+    per_sm = build.function("flash_attention", "flash_attention_blocks_per_sm",
+                            (ctypes.c_int,))
+    print("  flash_attention_fwd bfloat16: thread blocks resident a SM by "
+          f"head dim {({d: per_sm(d) for d in (32, 64, 80, 128)})}",
+          flush=True)
+    for key, (B, H, K, S, d) in (("train", (8, 9, 3, 1024, 64)),
+                                 ("zamba2", (8, 32, 32, 1024, 80))):
+        q = torch.randn((B, H, S, d), generator=g, device=dev).bfloat16()
+        k = torch.randn((B, K, S, d), generator=g, device=dev).bfloat16()
+        v = torch.randn((B, K, S, d), generator=g, device=dev).bfloat16()
 
-    def library():
-        return torch.nn.functional.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True)
+        def kernel():
+            return flash_attention_fwd(q, k, v, causal=True)
 
-    nbytes, ops = flash_bytes_ops(q, k, True, 0)
-    b_ms, b_by = bound_ms(nbytes, ops, PEAK_BF16_FLOPS)
-    results["flash_attention_fwd"] = dict(
-        route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention.py:109",
-        max_abs_err=max_err[torch.bfloat16], ms=device_ms(kernel, iters=20),
-        plain_ms=device_ms(lambda: ref.flash_attention_ref(q, k, v),
-                           iters=5),
-        bound_ms=b_ms, bound_by=b_by, library_ms=device_ms(library, iters=20),
-        eager_ms=eager_ms(kernel, iters=20))
+        def library():
+            return torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True)
+
+        nbytes, ops = flash_bytes_ops(q, k, True, 0)
+        b_ms, b_by = bound_ms(nbytes, ops, PEAK_BF16_FLOPS)
+        row = dict(
+            route="cuda",
+            source="src/repro_torch/kernels/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention.py:109",
+            max_abs_err=max_err[torch.bfloat16],
+            ms=device_ms(kernel, iters=20),
+            plain_ms=device_ms(lambda: ref.flash_attention_ref(q, k, v),
+                               iters=3),
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=device_ms(library, iters=20),
+            eager_ms=eager_ms(kernel, iters=20))
+        if key == "train":
+            results["flash_attention_fwd"] = row
+        else:
+            others["flash_attention_fwd@zamba2"] = row
 
 
 def ssd_case(dev, dtype, b, S, H, G, seed, P=64, N=128, init=False):
@@ -699,11 +802,13 @@ def gemm_tol(want: torch.Tensor) -> float:
 def check_gemm(dev, results, others):
     """The output-stationary GEMM against its plain version: the
     reference's sweep (tests/test_kernels.py) with the port's own blocks
-    and with the reference's where the kernel has that tile, the
-    microbench's 256 x 512 x 256 with 128 blocks, non-square shapes over
-    every tile (so w read as (n, k) cannot pass) and zamba2's MLP at 4096
-    tokens; float32 and bfloat16.  Timed at the MLP shapes in bfloat16
-    beside torch.matmul (cuBLAS) and at the microbench's in float32."""
+    and with the reference's, the microbench's 256 x 512 x 256 with 128
+    blocks, non-square shapes over every tile of both paths (so w read as
+    (n, k), or B read in the other major mode, cannot pass) and zamba2's
+    MLP at 4096 tokens; float32 (CUDA cores) and bfloat16 (tensor cores).
+    Blocks a path lacks must be refused (``ValueError``, no launch).
+    Timed at the MLP shapes in bfloat16 beside torch.matmul (cuBLAS) and
+    at the microbench's in float32."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.gemm_os import gemm_os, supported
     cases = [(128, 128, 128, None), (128, 128, 128, (128, 128, 128)),
@@ -711,21 +816,33 @@ def check_gemm(dev, results, others):
              (256, 1024, 256, None), (256, 1024, 256, (128, 128, 256)),
              (512, 256, 512, None), (256, 512, 256, (128, 128, 128)),
              (192, 320, 448, (64, 64, 32)), (384, 96, 640, (128, 64, 48)),
-             (256, 1024, 128, (64, 128, 64))] + \
-        [(m, k, n, None) for m, k, n in GEMM_MLP]
+             (256, 1024, 128, (64, 128, 64)),
+             (256, 640, 512, (128, 256, 64)), (192, 384, 768, (64, 256, 128)),
+             (384, 768, 192, (128, 64, 192)), (320, 448, 640, (64, 128, 64)),
+             (128, 192, 320, (64, 64, 64)), (256, 512, 768, (128, 128, 64))] \
+        + [(m, k, n, None) for m, k, n in GEMM_MLP]
     g = torch.Generator(device=dev).manual_seed(50)
     max_err = {}
     for dtype in (torch.float32, torch.bfloat16):
         worst = share = 0.0
-        n_cases = 0
+        n_cases = n_refused = 0
         for m, k, n, blocks in cases:
             kw = {} if blocks is None else dict(zip(("bm", "bn", "bk"),
                                                     blocks))
-            if blocks and not supported(*blocks, torch.tensor(
-                    [], dtype=dtype).element_size()):
-                continue      # the reference's 128 x 128 x 256 in float32
             x = torch.randn((m, k), generator=g, device=dev).to(dtype)
             w = torch.randn((k, n), generator=g, device=dev).to(dtype)
+            if blocks and not supported(*blocks, x.element_size()):
+                before = gemm_os.launches
+                try:
+                    gemm_os(x, w, **kw)
+                except ValueError:
+                    n_refused += 1
+                else:
+                    fail(f"gemm_os {dtype} took blocks {blocks} its path "
+                         "lacks")
+                if gemm_os.launches != before:
+                    fail(f"gemm_os {dtype} launched on refused blocks")
+                continue
             got = gemm_os(x, w, **kw)
             torch.cuda.synchronize()
             want = ref.gemm_ref(x, w)
@@ -742,8 +859,8 @@ def check_gemm(dev, results, others):
         limit = (f"{GEMM_F32_RTOL} of |out|" if dtype == torch.float32
                  else "1 bf16 ulp of |out|")
         print(f"  gemm_os {str(dtype)[6:]}: {n_cases} cases, max abs err "
-              f"{worst:.3g}, at most {share:.2f} of the limit ({limit})",
-              flush=True)
+              f"{worst:.3g}, at most {share:.2f} of the limit ({limit}); "
+              f"{n_refused} blocks the path lacks refused", flush=True)
 
     def timed(x, w, kw, peak, iters):
         nbytes, ops = gemm_bytes_ops(x, w)
@@ -887,7 +1004,8 @@ def check_zamba2_kernels(dev, others):
         replaces="src/repro/kernels/paged_attention.py:189",
         max_abs_err=None, ms=device_ms(paged), plain_ms=device_ms(
             lambda: ref.paged_decode_attention_ref(*args, idx, **side)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=device_ms(lambda: paged_library(args, side, idx)),
         eager_ms=eager_ms(paged))
     x, dt, A, B, C, _ = ssd_case(dev, torch.bfloat16, 1, 384, 80, 1, 61,
                                  P=64, N=64)
@@ -1133,6 +1251,9 @@ def profile_train_steps(out, start: int, n: int = 2):
           f"{busy:.1f} ms ({busy / wall:.1%}), idle {1 - busy / wall:.1%}; "
           f"stash/fetch copies {copies:.1f} ms ({copies / wall:.1%} of the "
           "wall time)", flush=True)
+    flash = sum(ms for name, (ms, _) in by_name.items() if "flash" in name)
+    print(f"  flash forward kernels: {flash:.2f} ms of {n} steps "
+          f"({flash / busy:.1%} of the device time)", flush=True)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     for name, (ms, count) in top:
         print(f"    {ms:9.2f} ms {ms / busy:6.1%} x{count:<5d} {name[:90]}",
@@ -1548,7 +1669,7 @@ def main() -> None:
     results, others = {}, {}
     check_paged(dev, results)
     check_codec(dev, results, others)
-    check_flash(dev, results)
+    check_flash(dev, results, others)
     check_ssd(dev, results, others)
     check_zamba2_kernels(dev, others)
     check_gemm(dev, results, others)

@@ -179,11 +179,14 @@ def test_pack_unpack_bit_exact(dev, name, dtype, rows, block_rows):
 @pytest.mark.parametrize("S,T,d,causal,window", [
     (1024, 1024, 64, True, 0), (1024, 1024, 64, True, 256),
     (1000, 1000, 64, True, 0), (200, 330, 32, False, 0),
-    (256, 256, 128, True, 0), (77, 77, 32, True, 16)])
+    (256, 256, 128, True, 0), (77, 77, 32, True, 16),
+    (256, 256, 80, True, 0), (1000, 1000, 80, True, 256),
+    (200, 330, 80, False, 0), (77, 77, 80, True, 16)])
 def test_flash_forward_matches_plain(dev, dtype, S, T, d, causal, window):
-    """Kernel == plain twin: f32 to 2e-5, bf16 to two bf16 ulps of the
-    largest output (the two sum in different orders, then round once);
-    strided (B, S, H, d) views give the same result as contiguous ones."""
+    """Kernel == plain twin: f32 (CUDA cores) to 2e-5, bf16 (tensor cores)
+    to two bf16 ulps of the largest output (the two sum in different
+    orders, then round once); strided (B, S, H, d) views give the same
+    result as contiguous ones.  Head dims 32, 64, 80 (zamba2) and 128."""
     from repro_torch.kernels.flash_attention import flash_attention_fwd
     g = torch.Generator(device="cpu").manual_seed(S + d)
     q = torch.randn((2, 9, S, d), generator=g).to(dev, dtype)
@@ -206,6 +209,13 @@ def test_flash_rejects_what_it_cannot_run(dev):
     q = torch.randn((1, 2, 8, 48), device=dev)
     with pytest.raises(ValueError):          # head dim 48: no fallback
         flash_attention_fwd(q, q, q)
+    for d in (40, 144):                      # not a multiple of 16; > 128
+        x = torch.randn((1, 2, 8, d), device=dev).bfloat16()
+        with pytest.raises(ValueError):
+            flash_attention_fwd(x, x, x)
+    x = torch.randn((1, 2, 8, 81), device=dev).bfloat16()[..., 1:]
+    with pytest.raises(ValueError):          # rows 2 bytes past 16: no copy
+        flash_attention_fwd(x, x, x)
     with pytest.raises(TypeError):           # mixed dtypes
         flash_attention_fwd(q[..., :32], q[..., :32].bfloat16(),
                             q[..., :32])
@@ -360,19 +370,28 @@ def test_mamba2_engine_kernel_matches_plain(dev):
     (128, 128, 128, None), (256, 512, 384, None), (256, 512, 256, (128, 128,
                                                                   128)),
     (192, 320, 448, (64, 64, 32)), (384, 96, 640, (128, 64, 48)),
-    (256, 1024, 128, (64, 128, 64))])
+    (256, 1024, 128, (64, 128, 64)), (256, 640, 512, (128, 256, 64)),
+    (192, 384, 768, (64, 256, 128)), (384, 768, 192, (128, 64, 192)),
+    (128, 192, 320, (64, 64, 64)), (1024, 2560, 768, None)])
 def test_gemm_os_matches_plain(dev, dtype, m, k, n, blocks):
     """Kernel == plain version (the float32 product rounded once): float32
-    within 1e-5 of the largest output (the same products summed in other
-    orders), bfloat16 within one bf16 ulp of it (the float32 sums differ
-    in their last bits, so a rounding can tip).  Non-square shapes, so w
-    read as (n, k) cannot pass."""
-    from repro_torch.kernels.gemm_os import gemm_os
+    (CUDA cores) within 1e-5 of the largest output (the same products
+    summed in other orders), bfloat16 (tensor cores) within one bf16 ulp
+    of it (the float32 sums differ in their last bits, so a rounding can
+    tip).  Non-square shapes, so w read as (n, k) cannot pass.  Blocks the
+    dtype's path lacks (bfloat16: bk not a multiple of 64; float32: bn
+    256) raise ``ValueError`` without a launch."""
+    from repro_torch.kernels.gemm_os import gemm_os, supported
     g = torch.Generator(device="cpu").manual_seed(m + k + n)
     x = torch.randn((m, k), generator=g).to(dev, dtype)
     w = torch.randn((k, n), generator=g).to(dev, dtype)
     kw = {} if blocks is None else dict(zip(("bm", "bn", "bk"), blocks))
     before = gemm_os.launches
+    if blocks and not supported(*blocks, x.element_size()):
+        with pytest.raises(ValueError, match="no .* tile"):
+            gemm_os(x, w, **kw)
+        assert gemm_os.launches == before
+        return
     got = gemm_os(x, w, **kw)
     assert gemm_os.launches == before + 1
     want = ref.gemm_ref(x, w)

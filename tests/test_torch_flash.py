@@ -32,6 +32,9 @@ CASES = {
     "window64": (1, 4, 2, 256, 256, 32, True, 64),
     "non_causal": (2, 4, 2, 96, 160, 32, False, 0),
     "ragged_s200": (1, 6, 2, 200, 200, 64, True, 0),
+    # head_dim 80 (zamba2-2.7b): GQA causal over ragged tiles, and a window
+    "gqa_causal_d80": (2, 6, 2, 200, 200, 80, True, 0),
+    "window48_d80": (1, 4, 4, 256, 256, 80, True, 48),
 }
 
 

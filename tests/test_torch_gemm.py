@@ -71,16 +71,24 @@ def test_plain_version_is_the_f32_product_rounded_once(dtype):
     assert float(np.abs(got - want).max()) <= tol
 
 
-# the blocks the reference's cases name: the kernel takes (bm, bn) in
-# {64, 128} and a bk whose slabs fit 227 KB of shared memory (f32: bk <=
-# 208 at 128 x 128; bf16: bk <= 432)
+# the blocks the reference's cases name, and the tiles of each path: float32
+# (CUDA cores) takes (bm, bn) in {64, 128} and a bk, a multiple of 16, whose
+# slabs fit 227 KB of shared memory (bk <= 208 at 128 x 128); bfloat16
+# (tensor cores) takes bm in {64, 128}, bn in {64, 128, 256} and a bk, a
+# multiple of 64, with one ring stage within 227 KB (bk <= 256 at 128 x
+# 256)
 NAMED = [((128, 128, 128), "float32", True),
          ((128, 128, 128), "bfloat16", True),
          ((128, 128, 256), "bfloat16", True),
          ((128, 128, 256), "float32", False),
          ((256, 256, 128), "float32", False),
          ((256, 256, 128), "bfloat16", False),
-         ((64, 128, 48), "float32", True)]
+         ((64, 128, 48), "float32", True),
+         ((64, 128, 48), "bfloat16", False),
+         ((128, 256, 64), "bfloat16", True),
+         ((128, 256, 64), "float32", False),
+         ((64, 256, 192), "bfloat16", True),
+         ((128, 256, 384), "bfloat16", False)]
 
 
 @pytest.mark.parametrize("blocks,dtype,taken", NAMED)
@@ -105,14 +113,28 @@ def test_named_blocks_taken_or_refused(blocks, dtype, taken):
 @pytest.mark.parametrize("itemsize", [2, 4])
 def test_pick_blocks_divide_fit_and_exist(m, k, n, itemsize):
     """The reference's pick_blocks shapes (tests/test_kernels.py), zamba2's
-    MLP and a ragged one: blocks that divide the dims, aligned to the
-    kernel's 16-byte copies, a tile the kernel has, double-buffered slabs
-    within half of the 227 KB a block may use (two blocks a SM)."""
+    MLP and a ragged one: blocks that divide the dims and are a tile of the
+    dtype's path.  float32: bk aligned to the kernel's 16-byte copies,
+    double-buffered slabs within half of the 227 KB a block may use (two
+    blocks a SM).  bfloat16: bk 64 (one swizzled 128-byte row of x), a
+    ring of at least 4 stages in one block's shared memory; K = 80 has no
+    such bk and is refused."""
+    if itemsize == 2 and k % tg.TC_BOX:
+        with pytest.raises(ValueError, match=r"no tile.*\(bm, bn\) in"):
+            tg.pick_blocks(m, k, n, itemsize)
+        return
     bm, bn, bk = tg.pick_blocks(m, k, n, itemsize)
     assert m % bm == 0 and n % bn == 0 and k % bk == 0
-    assert (bm, bn) in tg.TILES and bk % tg.BK_ALIGN == 0
     assert tg.supported(bm, bn, bk, itemsize)
-    assert 2 * tg.slab_bytes(bm, bn, bk, itemsize) <= tg.SMEM_PER_BLOCK // 2
+    if itemsize == 2:
+        assert (bm, bn) in tg.TC_TILES and bk == tg.TC_BOX
+        assert tg.stages_for(bm, bn, bk, 2) >= 4
+        assert tg.TC_RESERVED + tg.stages_for(bm, bn, bk, 2) * \
+            tg.tc_stage_bytes(bm, bn, bk) <= tg.SMEM_PER_BLOCK
+    else:
+        assert (bm, bn) in tg.TILES and bk % tg.BK_ALIGN == 0
+        assert 2 * tg.slab_bytes(bm, bn, bk, itemsize) <= \
+            tg.SMEM_PER_BLOCK // 2
 
 
 @pytest.mark.parametrize("m,k,n,blocks", [
