@@ -21,7 +21,7 @@ SSD_SERVE="$SSD check_ssm_serve_logits()"
 SSD_TRAIN="$SSD check_train_ssd_vs_plain()"
 GEMM='check_gemm(torch.device(0),{},{}) check_gemm_path()'
 ZAMBA='check_zamba2_serve_logits()'
-SHOW='main path logits|paged_decode_attention (float|bfloat)|flash_attention_fwd (float|bfloat)|training, |bit-exact|  ssd_scan (float|bfloat)|(mamba2|zamba2) logits|    (scan kernel|paged decode|plain bf16)|gemm_os (float|bfloat)|gemm path|state of the slots|    limits: float32|FAILED'
+SHOW='main path logits|paged_decode_attention (float|bfloat)|ssd_scan rounding probe|flash_attention_fwd (float|bfloat)|training, |bit-exact|  ssd_scan (float|bfloat)|(mamba2|zamba2) logits|    (scan kernel|paged decode|plain bf16)|gemm_os (float|bfloat)|gemm path|state of the slots|    limits: float32|FAILED'
 ONLY=" $* "
 
 fault() {   # name, file (from the checkout's root), sed expression, checks
@@ -46,21 +46,33 @@ import chip_smoke as c; c.$check" 2>&1) |
   rm -rf "$dir"
 }
 
-# side-pool tiles dequantised with frame 0's scales
+# side-pool tiles dequantised with frame 0's scales (both paths: bf16 on
+# the tensor cores, float32 on the CUDA cores)
 fault scale_of_frame0 $CSRC/paged_attention.cu \
-  's/const float sk = ks\[ci\], sv = vs\[ci\];/const float sk = ks[0], sv = vs[0];/' \
-  "$MAIN $ZAMBA"
-# K and V side-pool scales swapped
-fault kv_scales_swapped $CSRC/paged_attention.cu \
-  's/const float sk = ks\[ci\], sv = vs\[ci\];/const float sk = vs[ci], sv = ks[ci];/' \
+  's/sk = a.ks\[ci\]; sv = a.vs\[ci\];/sk = a.ks[0]; sv = a.vs[0];/; s/const float sk = a.ks\[ci\], sv = a.vs\[ci\];/const float sk = a.ks[0], sv = a.vs[0];/' \
   "$MAIN"
-# p not rounded to the pool dtype before the PV product
+# K and V side-pool scales swapped (both paths)
+fault kv_scales_swapped $CSRC/paged_attention.cu \
+  's/sk = a.ks\[ci\]; sv = a.vs\[ci\];/sk = a.vs[ci]; sv = a.ks[ci];/; s/const float sk = a.ks\[ci\], sv = a.vs\[ci\];/const float sk = a.vs[ci], sv = a.ks[ci];/' \
+  "$MAIN"
+# p not rounded to the pool dtype before the PV product: on the tensor
+# cores its low 16 bits cut off as it is packed (bf16 holds no more), on
+# the CUDA cores left as float32
 fault p_not_rounded $CSRC/paged_attention.cu \
-  's/pv += round_to<T>(p_s\[g \* page + r\])/pv += (p_s[g * page + r])/' \
+  's/const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);/const __nv_bfloat162 v = __halves2bfloat162(__float2bfloat16_rz(lo), __float2bfloat16_rz(hi));/; s/p_s\[g \* PAGE + r\] = round_to<T>(p);/p_s[g * PAGE + r] = p;/' \
   "$KERNEL"
-# dequantised side-pool values not rounded to the pool dtype
+# dequantised side-pool values not rounded to the pool dtype: cut to 8
+# bits on the tensor cores, left as float32 on the CUDA cores
 fault dequant_not_rounded $CSRC/paged_attention.cu \
-  's/round_to<T>((float)kq\[off\] \* sk)/((float)kq[off] * sk)/; s/round_to<T>((float)vq\[off\] \* sv)/((float)vq[off] * sv)/' \
+  's/const __nv_bfloat162 d = __floats2bfloat162_rn(x0, x1);/const __nv_bfloat162 d = __halves2bfloat162(__float2bfloat16_rz(x0), __float2bfloat16_rz(x1));/; s/return make_float2(round_to<T>(lo), round_to<T>(hi));/return make_float2(lo, hi);/' \
+  "$KERNEL"
+# the split merge drops split 0's partial
+fault paged_split_dropped $CSRC/paged_attention.cu \
+  's/for (int s = 0; s < a.n_split; ++s) {/for (int s = 1; s < a.n_split; ++s) {/' \
+  "$KERNEL"
+# the split merge adds the partials without scaling each by e^(m_split - m)
+fault paged_merge_unscaled $CSRC/paged_attention.cu \
+  's/const float w = expf(__ldcg(ml + (s \* G + g) \* 2) - m);/const float w = 1.f;/' \
   "$KERNEL"
 # flash (float32, CUDA cores): query head h reads kv head h % K instead of
 # h / G
@@ -89,18 +101,31 @@ fault flash_mma_p_unrounded $CSRC/flash_attention.cu \
 fault fp8_scale_reciprocal $CSRC/offload_pack.cu \
   's|fmaxf(absmax / 448.0f, 1e-12f)|fmaxf(absmax * (1.0f / 448.0f), 1e-12f)|' \
   "$CODEC"
-# SSD scan: the causal mask applied after the exp (exp of the unbounded
-# anti-causal entries overflows, and inf x 0 is NaN)
+# SSD scan (bfloat16, tensor cores): the causal mask applied after the
+# exp (exp of the unbounded anti-causal entries overflows, and inf x 0 is
+# NaN)
 fault ssd_mask_after_exp $CSRC/ssd_scan.cu \
-  's|out\[a\] = i >= j ? round_to<T>(acc\[a\]\[b\] \* expf(cum\[i\] - cum\[j\]))|out[a] = true ? (float)(i >= j) * round_to<T>(acc[a][b] * expf(cum[i] - cum[j]))|' \
+  's/return i >= j ? round_bf(s \* expf(cum\[i\] - cum\[j\])) : 0.f;/return (float)(i >= j) * round_bf(s * expf(cum[i] - cum[j]));/' \
   "$SSD_SERVE"
-# SSD scan: the state carried from chunk to chunk without its decay
+# SSD scan (bfloat16): the state carried from chunk to chunk without its
+# decay
 fault ssd_no_chunk_decay $CSRC/ssd_scan.cu \
-  's/s = s \* decay + acc\[r\];/s = s + acc[r];/' \
-  "$SSD_TRAIN $ZAMBA"
-# SSD scan: head h reads B / C of group h % G instead of h / (H / G)
+  's/for (int e = 0; e < 4; ++e) st\[u\]\[j\]\[e\] \*= decay;/for (int e = 0; e < 4; ++e) st[u][j][e] *= 1.f;/' \
+  "$SSD"
+# SSD scan (bfloat16): head h reads B / C of group h % G instead of
+# h / (H / G)
 fault ssd_group_mod $CSRC/ssd_scan.cu \
-  's|const int g = h / (H / G);|const int g = h % G;|' \
+  '/^namespace tc {/,$ s|const int g = h / (H / G);|const int g = h % G;|' \
+  "$SSD"
+# SSD scan (bfloat16): dt x rounded to bf16 -- only the hi part of each
+# split operand kept
+fault ssd_xdt_bf16 $CSRC/ssd_scan.cu \
+  's/lo = pack2(a - h.x, b - h.y);/lo = 0u;/; s/split2(a - h.x, b - h.y, mid, lo);/mid = lo = 0u;/' \
+  "$SSD"
+# SSD scan (bfloat16): the state not rounded where it meets C -- its lo
+# part kept beside the bf16 copy and multiplied in as well
+fault ssd_state_unrounded $CSRC/ssd_scan.cu \
+  's/return (size_t)P \* padded(N) \* 2;/return (size_t)P * padded(N) * 4;/; s/= hi;$/= hi; { const float2 h_ = unpack2(hi); *reinterpret_cast<uint32_t*>(st_smem + ((P + p) * LN + n) * 2) = pack2(st[u][j][2 * hf] - h_.x, st[u][j][2 * hf + 1] - h_.y); }/; s|mma_16816(yacc\[2 \* pp + 1\], a, b\[2\], b\[3\]);|mma_16816(yacc[2 * pp + 1], a, b[2], b[3]); ldsm_x4(sS + P * LN * 2 + ((16 * pp + (lane % 8) + 8 * (lane / 16)) * LN + 16 * kk + 8 * ((lane / 8) % 2)) * 2, b); mma_16816(yacc[2 * pp], a, b[0], b[1]); mma_16816(yacc[2 * pp + 1], a, b[2], b[3]);|' \
   "$SSD"
 # GEMM (float32, CUDA cores): the last K slab never consumed
 fault gemm_drop_last_slab $CSRC/gemm_os.cu \

@@ -31,9 +31,10 @@ def dev():
 
 
 def _paged_inputs(dev, dtype, B=8, H=9, K=3, hd=64, page=16, pp=8, C=6,
-                  seed=0):
+                  seed=0, stride=1):
     """Pools of B*pp+1 frames (last: scratch), a permuted page map with one
-    scratch entry, and C mapped frames moved to an int8 side pool."""
+    scratch entry, and C mapped frames (every ``stride``-th entry of the
+    map, from the first) moved to an int8 side pool."""
     g = torch.Generator(device="cpu").manual_seed(seed)
     P = B * pp + 1
     q = torch.randn((B, 1, H, hd), generator=g)
@@ -43,7 +44,7 @@ def _paged_inputs(dev, dtype, B=8, H=9, K=3, hd=64, page=16, pp=8, C=6,
     pm = pm.to(torch.int32)
     pm[0, -1] = P - 1
     side = {"kq_pool": [], "vq_pool": [], "k_scale": [], "v_scale": []}
-    for ci, fr in enumerate(pm.reshape(-1)[:C].tolist()):
+    for ci, fr in enumerate(pm.reshape(-1)[::stride][:C].tolist()):
         for pool, qn, sn in ((kp, "kq_pool", "k_scale"),
                              (vp, "vq_pool", "v_scale")):
             qq, sc = ref.int8_pack_ref(pool[fr].reshape(page * K, hd),
@@ -63,12 +64,28 @@ def _bf16_ulps(x, n):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("window,softcap", [(0, 0.0), (40, 30.0)])
-def test_paged_decode_matches_plain(dev, dtype, window, softcap):
+@pytest.mark.parametrize("shape", [
+    dict(),                                       # GQA, G 3, hd 64
+    dict(B=3, H=4, K=4, hd=80, pp=12, C=12, stride=3)])  # G 1, hd 80
+def test_paged_decode_matches_plain(dev, dtype, window, softcap, shape):
     """Kernel == plain version with and without side-pool frames, across
     fills: f32 to 2e-5, bf16 to two bf16 ulps of each fill's largest output
-    (the two sum in different orders, then round once to bf16)."""
-    args, side = _paged_inputs(dev, dtype)
-    for idx in (0, 15, 16, 70, 127):
+    (the two sum in different orders, then round once to bf16).  The
+    cases a split of the page map can get wrong: fills that leave the
+    last splits dead (0, 15), a fill on a page boundary and on a split
+    boundary (15 / 16, 63 / 64), a window that kills the first splits
+    (40 rows at fill 127 and up), softcap, side-pool frames in every split
+    (the second shape: every third map entry), head_dim 80 with G = 1, and
+    -1 (nothing visible: zeros)."""
+    from repro_torch.kernels.paged_attention import split_plan
+    args, side = _paged_inputs(dev, dtype, **shape)
+    B, pp = args[3].shape
+    _, _, K, hd = args[1].shape
+    n_split, per, _ = split_plan(pp, B, K, args[0].shape[2] // K, hd,
+                                 torch.cuda.get_device_properties(
+                                     dev).multi_processor_count)
+    assert n_split > 1 and per == 4          # the cases above cut splits
+    for idx in (0, 15, 16, 63, 64, 70, 127, 16 * pp - 1):
         for extra in ({}, side):
             before = paged_decode_attention.launches
             got = paged_decode_attention(*args, idx, window=window,
@@ -80,7 +97,7 @@ def test_paged_decode_matches_plain(dev, dtype, window, softcap):
             torch.testing.assert_close(got.float(), want.float(), rtol=0,
                                        atol=tol)
     got = paged_decode_attention(*args, -1, **side)
-    assert torch.isfinite(got.float()).all()
+    assert torch.equal(got, torch.zeros_like(got))
 
 
 def test_paged_decode_rejects_what_it_cannot_run(dev):
@@ -329,6 +346,30 @@ def test_ssd_scan_rejects_what_it_cannot_run(dev):
     shifted.copy_(x)                         # contiguous, 8 bytes off
     with pytest.raises(ValueError):
         ssd_scan(shifted, dt, A, B, C, 128)
+    # bfloat16 runs the tensor-core kernel only: a shape it lacks raises,
+    # never reaching the float32 kernel
+    before = ssd_scan.launches
+    for b_, S_, H_, P_, N_, chunk in ((1, 256, 4, 64, 128, 8),   # chunk 8
+                                      (1, 256, 4, 64, 48, 128),  # N 48
+                                      (1, 256, 4, 96, 128, 128),  # P 96
+                                      (1, 256, 4, 40, 64, 128)):  # P 40
+        (xb, dtb, Ab, Bb, Cb), _ = _ssd_inputs(dev, torch.bfloat16, b_, S_,
+                                               H_, 1, P=P_, N=N_)
+        with pytest.raises(ValueError):
+            ssd_scan(xb, dtb, Ab, Bb, Cb, chunk)
+    assert ssd_scan.launches == before
+
+
+@pytest.mark.parametrize("chunk,N,P", [(128, 128, 64), (128, 64, 64),
+                                       (16, 16, 16)])
+def test_ssd_scan_rounding_probe(dev, chunk, N, P):
+    """The scan's rounding probe (``ssd_scan.rounding_probe``): the kernel
+    reproduces the plain version bit for bit, y and the final state."""
+    from repro_torch.kernels.ssd_scan import rounding_probe, ssd_scan
+    args = rounding_probe(chunk, N, P, device=dev)
+    y, fin = ssd_scan(*args, chunk)
+    wy, wfin = ref.ssd_chunked_ref(*args, chunk)
+    assert torch.equal(y, wy) and torch.equal(fin, wfin)
 
 
 def test_mamba2_engine_kernel_matches_plain(dev):

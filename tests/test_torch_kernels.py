@@ -120,6 +120,30 @@ def test_paged_impl_registry():
     assert tops._PAGED_IMPL["default"] == "cuda"
 
 
+@pytest.mark.parametrize("pp,B,K,sms", [(16, 8, 3, 132), (32, 6, 32, 132),
+                                         (1, 1, 1, 132), (0, 2, 2, 132),
+                                         (7, 1, 2, 8), (64, 16, 8, 132),
+                                         (33, 2, 1, 132), (5, 40, 40, 16)])
+def test_paged_split_plan(pp, B, K, sms):
+    """The paged decode's split plan: every page-map column in exactly one
+    split, no split empty of columns, each split at least 4 columns where
+    the map has them, the scratch sized for every split's partial; and
+    nothing in it can depend on ``cache_index`` (it is not an argument),
+    so a pool and batch launch one grid at every length."""
+    from repro_torch.kernels.paged_attention import split_plan
+    n, per, scratch = split_plan(pp, B, K, 3, 64, sms)
+    assert (n, per, scratch) == split_plan(pp, B, K, 3, 64, sms)
+    assert n >= 1 and per >= 1
+    cols = [j for s in range(n)
+            for j in range(s * per, min(pp, (s + 1) * per))]
+    assert cols == list(range(pp))
+    if pp:
+        assert (n - 1) * per < pp                 # the last split has columns
+        assert per >= min(pp, 4)
+    assert scratch == (B * K * n * 3 * (64 + 2),)
+    assert "cache_index" not in split_plan.__code__.co_varnames
+
+
 # ---------------------------------------------------------------------------
 # int8 codec: bit-exact against the reference
 @pytest.mark.parametrize("rows,block_rows,dtype", [

@@ -145,6 +145,76 @@ def test_ssd_plain_matches_pallas_and_oracles(S, P, N, chunk):
         _close(fin[i], wf, PALLAS_TOL, f"state vs oracle {i}")
 
 
+def _ssd_variant(x, dt, A, B, C, chunk, change):
+    """``models/ssm.ssd_chunked`` with one rounding changed: ``change``
+    names one of its five roundings to x's dtype, which is skipped, or is
+    "xdt", which rounds the float32 ``dt x`` to x's dtype as well."""
+    b, S, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    c, n, rep, dtype = chunk, S // chunk, H // G, x.dtype
+
+    def rnd(t, name):
+        return t.float() if name == change else t.to(dtype).float()
+
+    cum = torch.cumsum((dt * A).reshape(b, n, c, H), dim=2)
+    Bc = B.reshape(b, n, c, G, N).repeat_interleave(rep, dim=3).float()
+    Cc = C.reshape(b, n, c, G, N).repeat_interleave(rep, dim=3).float()
+    idx = torch.arange(c)
+    causal = (idx[:, None] >= idx[None, :])[None, None, :, :, None]
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]
+    L = torch.exp(torch.where(causal, seg, float("-inf")))
+    scores = torch.einsum("bnihd,bnjhd->bnijh", Cc, Bc) * L
+    xdt = x.reshape(b, n, c, H, P).float() * dt.reshape(b, n, c, H)[..., None]
+    if change == "xdt":
+        xdt = xdt.to(dtype).float()
+    y_intra = torch.einsum("bnijh,bnjhp->bnihp", rnd(scores, "scores"), xdt)
+    decay_to_end = torch.exp(cum[:, :, -1:, :] - cum)
+    states = torch.einsum("bnchd,bnchp->bnhpd",
+                          rnd(Bc * decay_to_end[..., None], "decayed_B"), xdt)
+    st = torch.zeros((b, H, P, N))
+    prev = []
+    for k in range(n):
+        prev.append(st)
+        st = st * torch.exp(cum[:, k, -1, :])[:, :, None, None] + states[:, k]
+    y_inter = torch.einsum(
+        "bnchd,bnhpd->bnchp",
+        rnd(Cc * torch.exp(cum)[..., None], "decayed_C"),
+        rnd(torch.stack(prev, dim=1), "state"))
+    y = y_intra + rnd(y_inter, "y_inter")
+    return y.reshape(b, S, H, P), st.to(dtype)
+
+
+# what each change moves the probe's output by (max |d| over y and the
+# final state, chunk 16): ``kernels/ssd_scan.rounding_probe``
+PROBE_SHIFT = {"scores": 16 * 2.0 ** -8 * (1 + 2.0 ** -12),
+               "decayed_B": 2.0 ** -7, "decayed_C": 2.0 ** -7,
+               "state": 16 * 2.0 ** -7, "y_inter": 16 * 2.0 ** -8,
+               "xdt": 16 * 2.0 ** -12}
+
+
+@pytest.mark.parametrize("change", sorted(PROBE_SHIFT))
+def test_ssd_rounding_probe(change):
+    """The scan's rounding probe: the reference's ``ssd_chunked`` and the
+    port's agree bit for bit on it (y float32, the final state bfloat16),
+    the plain variant that changes nothing agrees too, and changing the
+    named rounding moves the output by the probe's stated amount."""
+    from repro_torch.kernels.ssd_scan import rounding_probe
+    x, dt, A, B, C = rounding_probe(chunk=16, N=16, P=16)
+    jx, jB, jC = (jnp.asarray(t.float().numpy(), jnp.bfloat16)
+                  for t in (x, B, C))
+    jy, jf = jssm.ssd_chunked(jx, jnp.asarray(dt.numpy()),
+                              jnp.asarray(A.numpy()), jB, jC, 16)
+    ty, tf = tssm.ssd_chunked(x, dt, A, B, C, 16)
+    assert np.array_equal(ty.numpy(), np.asarray(jy, np.float32))
+    assert np.array_equal(tf.float().numpy(), np.asarray(jf, np.float32))
+    vy, vf = _ssd_variant(x, dt, A, B, C, 16, None)
+    assert torch.equal(vy, ty) and torch.equal(vf, tf)
+    cy, cf = _ssd_variant(x, dt, A, B, C, 16, change)
+    moved = max((cy - ty).abs().max().item(),
+                (cf.float() - tf.float()).abs().max().item())
+    assert moved == pytest.approx(PROBE_SHIFT[change], rel=1e-6)
+
+
 @pytest.mark.parametrize("G,with_init", [(1, False), (2, True)])
 def test_ssd_chunked_matches_recurrences(G, with_init):
     x, dt, A, B, C, s0 = _scan_inputs(2, 48, 8, 32, G, 16, seed=3)
