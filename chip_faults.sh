@@ -16,6 +16,7 @@ MAIN='check_main_path_logits() check_paged(torch.device(0),{})'
 KERNEL='check_paged(torch.device(0),{})'
 FLASH='check_flash(torch.device(0),{},{}) check_train_flash_vs_plain()'
 CODEC='check_codec(torch.device(0),{},{})'
+INT8='check_int8_pages(torch.device(0),{},{})'
 SSD='check_ssd(torch.device(0),{},{})'
 SSD_SERVE="$SSD check_ssm_serve_logits()"
 SSD_TRAIN="$SSD check_train_ssd_vs_plain()"
@@ -101,6 +102,32 @@ fault flash_mma_p_unrounded $CSRC/flash_attention.cu \
 fault fp8_scale_reciprocal $CSRC/offload_pack.cu \
   's|fmaxf(absmax / 448.0f, 1e-12f)|fmaxf(absmax * (1.0f / 448.0f), 1e-12f)|' \
   "$CODEC"
+# int8 pack (cluster regime): the cluster barrier dropped -- each block
+# quantises with its own partial absmax
+fault cluster_barrier_dropped $CSRC/offload_pack.cu \
+  's|^  cluster.sync();  .*$||; s|\*cluster.map_shared_rank(&partial, threadIdx.x)|partial|' \
+  "$INT8"
+# int8 pack: the ragged chunks (the row block's tail) left unwritten
+fault int8_tail_unwritten $CSRC/offload_pack.cu \
+  's/const unsigned m = n;/const unsigned m = 0;/' \
+  "$INT8"
+# unpack of a page: leaf 0's scale used for every leaf of the launch
+fault unpack_scale_of_leaf0 $CSRC/offload_pack.cu \
+  's/const float s = __ldg(L.scales + b0);/const float s = __ldg(a.l[0].scales + b0);/' \
+  "$INT8"
+# int8 pack: round half away from zero (roundf) instead of half to even
+fault int8_round_not_rint $CSRC/offload_pack.cu \
+  's/  return fminf(fmaxf(r, -127.f), 127.f) + kRound;/  return roundf(fminf(fmaxf(r, -127.f), 127.f)) + kRound;/' \
+  "$INT8"
+# unpack: one scale a 16-code chunk even where the chunk straddles two row
+# blocks
+fault unpack_scale_per_chunk $CSRC/offload_pack.cu \
+  's|if (fdiv(e0 + n - 1, L.block_div) == b0) {|if (true) {|' \
+  "$INT8"
+# unpack: the bf16 cast truncated instead of rounded to nearest even
+fault unpack_bf16_truncated $CSRC/offload_pack.cu \
+  's/__floats2bfloat162_rn(v\[2 \* j\], v\[2 \* j + 1\])/__halves2bfloat162(__float2bfloat16_rz(v[2 * j]), __float2bfloat16_rz(v[2 * j + 1]))/' \
+  "$INT8"
 # SSD scan (bfloat16, tensor cores): the causal mask applied after the
 # exp (exp of the unbounded anti-causal entries overflows, and inf x 0 is
 # NaN)

@@ -26,6 +26,11 @@ Phases (each failure exits non-zero; nothing is caught and carried on):
               every tile of both paths and zamba2's MLP at 4096 tokens
               (blocks a path lacks must be refused), then driven once,
               counted, through its entry point: that MLP's two products.
+              The int8 pack and the shared unpack run a spilled page's
+              leaves in one launch each way, straight from and into a
+              full-width pool's frames (smollm's and zamba2's pages), and
+              are held bit-exact there, on half-way ties, ragged tails
+              and straddling row blocks, in both of the pack's regimes.
 4. serve    — serves full-width smollm-135m (bf16, random weights from a
               seed) through ``repro_torch.launch.serve``: paged KV, in-place
               kernel decode, int8 spill codec through its kernels, an
@@ -36,7 +41,9 @@ Phases (each failure exits non-zero; nothing is caught and carried on):
               logits of every decode step, those after compressed
               adoptions included, must agree.  Then the path runs once
               more with the launch counts set to 0, and checks every
-              request finished and every kernel launched.
+              request finished, every kernel launched, and the codec one
+              launch a page: an int8 pack a page evicted, an unpack a
+              page decoded into the pool.
 5. train    — trains full-width smollm-135m (bf16, random weights from a
               seed) for 20 steps of 8 x 1024 tokens through
               ``repro_torch.launch.train``, every layer's input stashed to
@@ -80,8 +87,8 @@ Phases (each failure exits non-zero; nothing is caught and carried on):
               every
               request finished, the scan launched once per
               Mamba2 block per admission, the paged decode once per site
-              per decode call, stash and fetch bytes equal, the parked
-              state 37 MB a park.
+              per decode call, the codec once a page, stash and fetch
+              bytes equal, the parked state 37 MB a park.
 
 The line before the last is a JSON object with one entry per kernel (its
 launches summed over the counted runs of phases 3 to 8, and per run); the
@@ -541,11 +548,15 @@ def check_codec(dev, results, others):
     for name, (kern, plain) in packs.items():
         for x, tag in ((xt, "train"), (xl, "leaf")):
             n, R = x.numel(), x.shape[0]
-            # x read once, one byte an element and a scale written (the
-            # kernel reads x twice: absmax, then quantise)
+            # the bound reads x once and writes a byte an element and a
+            # scale; fp8 and blocksparse read x twice (absmax, then
+            # quantise), the int8 pack once from HBM (a cluster's shared
+            # memory holds the row block) or, at 8192 x 576, twice with the
+            # second read in L2.  int8's main-path shape is the page
+            # (check_int8_pages)
             timed(lambda: kern(x, block_rows=R), lambda: plain(x, R),
                   n * 2 + n + 4, 3.0 * n, sites[name], f"{name}@{tag}",
-                  (tag == "leaf") == (name == "int8_pack"))
+                  tag == "train" and name != "int8_pack")
     for x, tag in ((xt, "train"), (xl, "leaf")):
         n, R = x.numel(), x.shape[0]
         pack = kp.fp8_pack if tag == "train" else kp.int8_pack
@@ -554,6 +565,124 @@ def check_codec(dev, results, others):
               lambda: ref.fp8_unpack_ref(q, s, R, torch.bfloat16),
               n + 4 + 2 * n, 1.0 * n, "src/repro/kernels/offload_pack.py:86",
               f"fp8_unpack@{tag}", tag == "train")
+
+
+def int8_page(dev, arch, num_pages, dtype, seed):
+    """A full-width page pool of ``arch`` as the serving path allocates it
+    (``transformer.paged_pool``: leaves (n_groups, num_pages + 1, 16, K,
+    hd)), k 10^4 times smaller than v, random; returns the pool's leaves
+    and the frame views (one a leaf) of pages 5 and 9."""
+    from repro_torch import tree
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import transformer as tfm
+    pool, _ = tfm.paged_pool(ARCHS[arch], num_pages, 16, dtype, dev)
+    leaves, _ = tree.flatten(pool)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    for c, mag in zip(leaves, (1e-2, 1e2)):        # k, v
+        c.copy_(torch.randn(c.shape, generator=g, device=dev) * mag)
+    return leaves, [c[:, 5] for c in leaves], [c[:, 9] for c in leaves]
+
+
+def check_int8_pages(dev, results, others):
+    """The int8 pack and the shared unpack on the serving page path: the
+    leaves of one page packed in one launch straight from a full-width
+    pool's frame and decoded in one launch straight into another frame
+    (smollm's page: 2 leaves of (30, 16, 3, 64); zamba2's: 2 of (9, 16,
+    32, 80)), bit-exact against the plain versions leaf by leaf, float32
+    and bfloat16 pools; then half-way ties, ragged tails, row blocks whose
+    16-code chunks straddle two scales, all zeros, in both regimes (a row
+    block on one cluster, or two passes).  Times the page pack and unpack
+    (the int8 pack's main-path row) and 8192 x 576 in bfloat16."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import offload_pack as kp
+    pages = {"smollm-135m": 64, "zamba2-2.7b": 96}
+    for dtype in (torch.float32, torch.bfloat16):
+        for arch, num in pages.items():
+            leaves, src, dst = int8_page(dev, arch, num, dtype, seed=num)
+            got = kp.int8_pack_leaves(src)
+            want = ref.int8_pack_leaves_ref(src)
+            if not all(torch.equal(q, qr) and torch.equal(s, sr)
+                       for (q, s), (qr, sr) in zip(got, want)):
+                fail(f"int8 pack of a {arch} page ({dtype}) from the pool "
+                     "not bit-exact")
+            if not float(got[1][1]) > 1e3 * float(got[0][1]):
+                fail(f"int8 pack of a {arch} page: one scale for both leaves")
+            before = [c.clone() for c in leaves]
+            kp.unpack_leaves([q for q, _ in got], [s for _, s in got], dst)
+            for c, old, (q, s) in zip(leaves, before, got):
+                hd = q.shape[-1]
+                R = q.numel() // hd
+                if not torch.equal(c[:, 9], ref.fp8_unpack_ref(
+                        q.reshape(R, hd), s.reshape(1), R, dtype)
+                        .reshape(q.shape)):
+                    fail(f"unpack of a {arch} page into the pool ({dtype}) "
+                         "not bit-exact")
+                c[:, 9] = old[:, 9]
+                if not torch.equal(c, old):
+                    fail(f"unpack of a {arch} page wrote outside its frame")
+            del leaves, src, dst, before
+    n_cases = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        cases = []
+        for rows, cols in ((1440, 64), (8192, 576)):          # both regimes
+            x = torch.zeros((rows, cols), device=dev, dtype=dtype)
+            x[0, :5] = torch.tensor([127.0, 0.5, -0.5, 2.5, -3.5])
+            x[-1, -4:] = torch.tensor([0.5, -0.5, 2.5, -3.5])
+            cases.append((x, rows, [127, 0, 0, 2, -4]))
+            cases.append((torch.zeros_like(x), rows, None))
+        for rows, cols, br in ((1601, 63, 1601), (1600, 63, 16),
+                               (1440, 63, 9), (8193, 577, 8193)):
+            cases.append((codec_case(dev, dtype, rows, cols, seed=rows + br),
+                          br, None))
+        for x, br, ties in cases:
+            q, s = kp.int8_pack(x, block_rows=br)
+            qr, sr = ref.int8_pack_ref(x, br)
+            ok = torch.equal(q, qr) and torch.equal(s, sr)
+            for out in (torch.float32, torch.bfloat16):
+                ok = ok and torch.equal(
+                    kp.fp8_unpack(q, s, block_rows=br, dtype=out),
+                    ref.fp8_unpack_ref(q, s, br, out))
+            if ties is not None:
+                ok = ok and q[0, :5].tolist() == ties \
+                    and q[-1, -4:].tolist() == ties[1:]
+            if not ok:
+                fail(f"int8 pack / unpack {dtype} {tuple(x.shape)} block_rows "
+                     f"{br}: not bit-exact")
+            n_cases += 1
+    torch.cuda.synchronize()
+    print("  int8 pack and unpack of a full-width page, one launch each, from "
+          "and into the pool (smollm, zamba2; f32, bf16; leaves 1e4 apart): "
+          f"bit-exact; and over {n_cases} more cases (ties at absmax 127, "
+          "all zeros, both regimes; 1601 x 63, 100 row blocks of 16 x 63, "
+          "row blocks of 9 x 63, 8193 x 577): bit-exact", flush=True)
+
+    site_pack = "src/repro/kernels/offload_pack.py:110"
+    site_unpack = "src/repro/kernels/offload_pack.py:86"
+    for arch, num in pages.items():
+        leaves, src, dst = int8_page(dev, arch, num, torch.bfloat16, seed=1)
+        n = sum(x.numel() for x in src)
+        got = kp.int8_pack_leaves(src)
+        qs, ss = [q for q, _ in got], [s for _, s in got]
+        tag = "page" if arch == "smollm-135m" else "zamba2_page"
+        for key, fn, plain, nbytes, site in (
+                (f"int8_pack@{tag}", lambda: kp.int8_pack_leaves(src),
+                 lambda: ref.int8_pack_leaves_ref(src),
+                 2 * n + n + 4 * len(src), site_pack),
+                (f"fp8_unpack@{tag}", lambda: kp.unpack_leaves(qs, ss, dst),
+                 lambda: ref.unpack_leaves_ref(qs, ss, dst),
+                 n + 4 * len(src) + 2 * n, site_unpack)):
+            b_ms, b_by = bound_ms(nbytes, 3.0 * n, PEAK_F32_FLOPS)
+            row = dict(
+                route="cuda",
+                source="src/repro_torch/kernels/csrc/offload_pack.cu",
+                replaces=site, max_abs_err=0.0, ms=device_ms(fn),
+                plain_ms=device_ms(plain), bound_ms=b_ms, bound_by=b_by,
+                library_ms=None, eager_ms=eager_ms(fn))
+            if key == "int8_pack@page":       # the serving path's call
+                results["int8_pack"] = row
+            else:
+                others[key] = row
+        del leaves, src, dst
 
 
 def flash_bytes_ops(q, k, causal, window):
@@ -1196,10 +1325,35 @@ def check_serve_main_path():
         fail(f"the main path evicted {report['pages']['evictions']} pages "
              f"and adopted {report['decode_io']['compressed_adopts']} "
              "compressed: it must do both")
-    for name in ("paged_decode_attention", "int8_pack", "fp8_unpack"):
-        if launches[name] <= 0:
-            fail(f"kernel {name} was not launched on the serving path")
+    if launches["paged_decode_attention"] <= 0:
+        fail("kernel paged_decode_attention was not launched on the serving "
+             "path")
+    check_page_launches("smollm", report, launches)
     return launches
+
+
+def check_page_launches(label, report, launches):
+    """The spill's page path launches its codec kernels once a page: every
+    tenant spills through int8, so one int8 pack a page evicted, and one
+    unpack a page decoded into the pool (refetched and not adopted
+    compressed, or a side-pool frame inflated)."""
+    pages, dec = report["pages"], report["page_decodes"]
+    adopts = report["decode_io"]["compressed_adopts"]
+    print(f"  {label} page codec: {pages['evictions']} pages evicted, "
+          f"int8_pack launched {launches['int8_pack']}x; {pages['refetches']}"
+          f" refetched ({adopts} adopted compressed, {dec['refetched']} "
+          f"decoded) + {dec['inflated']} side frames inflated, unpack "
+          f"launched {launches['fp8_unpack']}x", flush=True)
+    if dec["refetched"] != pages["refetches"] - adopts:
+        fail(f"{label}: {dec['refetched']} refetched pages decoded; want "
+             f"{pages['refetches']} refetched less {adopts} adopted")
+    if launches["int8_pack"] != pages["evictions"]:
+        fail(f"{label}: int8_pack launched {launches['int8_pack']} times for "
+             f"{pages['evictions']} pages evicted; want one a page")
+    if launches["fp8_unpack"] != dec["refetched"] + dec["inflated"]:
+        fail(f"{label}: the unpack launched {launches['fp8_unpack']} times "
+             f"for {dec['refetched'] + dec['inflated']} pages decoded; want "
+             "one a page")
 
 
 def check_train_path(label, argv, layers, steps, per_step,
@@ -1639,9 +1793,7 @@ def check_zamba2_serve_main_path():
         fail(f"paged_decode_attention launched "
              f"{launches['paged_decode_attention']} times in {steps} decode "
              f"calls; want {ZAMBA_SITES} each")
-    for name in ("int8_pack", "fp8_unpack"):
-        if launches[name] <= 0:
-            fail(f"kernel {name} was not launched on the zamba2 path")
+    check_page_launches("zamba2", report, launches)
     stash, fetch = report.get("kv_stash", {}), report.get("kv_fetch", {})
     slots = report["slots"]
     print(f"  spill: stash {stash}, fetch {fetch}; pages {report['pages']}; "
@@ -1709,6 +1861,7 @@ def main() -> None:
     results, others = {}, {}
     check_paged(dev, results)
     check_codec(dev, results, others)
+    check_int8_pages(dev, results, others)
     check_flash(dev, results, others)
     check_ssd(dev, results, others)
     check_zamba2_kernels(dev, others)

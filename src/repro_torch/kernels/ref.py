@@ -6,7 +6,7 @@ JAX reference's kernels.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -128,6 +128,30 @@ def fp8_unpack_ref(q: torch.Tensor, scale: torch.Tensor, block_rows: int,
 
 
 int8_unpack_ref = fp8_unpack_ref
+
+
+def int8_pack_leaves_ref(xs: Sequence[torch.Tensor]
+                         ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """The batched int8 pack, leaf by leaf: each leaf's flattened
+    ``(-1, cols)`` view as one row block -> ``[(q shaped like x, 0-d
+    scale)]``."""
+    out = []
+    for x in xs:
+        x2 = x.reshape(-1, x.shape[-1])
+        q, s = int8_pack_ref(x2, x2.shape[0])
+        out.append((q.reshape(x.shape), s[0]))
+    return out
+
+
+def unpack_leaves_ref(qs: Sequence[torch.Tensor],
+                      scales: Sequence[torch.Tensor],
+                      outs: Sequence[torch.Tensor]) -> None:
+    """The batched unpack, leaf by leaf: each payload as one row block,
+    decoded in ``outs[i]``'s dtype and copied into it."""
+    for q, s, o in zip(qs, scales, outs):
+        q2 = q.reshape(-1, q.shape[-1])
+        o.copy_(fp8_unpack_ref(q2, s.reshape(1), q2.shape[0], o.dtype)
+                .reshape(o.shape))
 
 
 # ---------------------------------------------------------------------------

@@ -188,9 +188,10 @@ def forward_train(params: Params, ctx: ModelContext, tokens: torch.Tensor,
     cfg = ctx.cfg
     if cfg.is_hybrid:
         raise NotImplementedError(
-            f"{cfg.name}: hybrid training is not ported yet; it comes with "
-            "the rest of slice 3b (training attention through the flash "
-            f"forward at head_dim {cfg.resolved_head_dim}, ROADMAP A8)")
+            f"{cfg.name}: hybrid training is not ported yet (the rest of "
+            "slice 3b): forward_train over the shared attention block is "
+            "missing; the flash forward already takes head_dim "
+            f"{cfg.resolved_head_dim} (ROADMAP A1)")
     group, n_groups = arch_group(cfg)
     x = embed_tokens(params, ctx, tokens)
 

@@ -37,7 +37,8 @@ import torch
 
 from repro_torch import tree
 from repro_torch.configs.base import MemoryPlan
-from repro_torch.core.compress import decode_tensor, encode_tensor, get_codec
+from repro_torch.core.compress import (decode_leaves, encode_leaves,
+                                       encode_tensor, get_codec)
 from repro_torch.core.runtime import MemoryRuntime, fmt_bytes
 from repro_torch.core.tiers import TransferHints
 from repro_torch.models import transformer as tfm
@@ -66,6 +67,12 @@ class _SpilledPage:
     paths: List[tree.Path]            # page tree structure
     items: List[Tuple[Any, Any, Any]]  # (tier payload, codec scale, dtype)
     codec: Optional[str]              # None: raw
+
+
+def _frame(pool, pid: int) -> Tuple[List[torch.Tensor], List[tree.Path]]:
+    """The leaves (views, in the pool's flatten order) and paths of frame
+    ``pid`` of a page pool or side pool."""
+    return tree.flatten(tree.map(lambda c: c[:, pid], pool))
 
 
 class KVCacheManager:
@@ -261,6 +268,9 @@ class PagedKVCacheManager(KVCacheManager):
       pages); a codec with kernels packs and unpacks through them
       (``kernels/offload_pack.py``: the CUDA kernel on the card, its plain
       version on the CPU — bit-identical to the per-tensor transform).
+      A page is one launch each way where the codec allows: the int8 pack
+      reads every leaf of an evicted page straight from its frame, and
+      every fetched or inflated page decodes straight into its frame.
     * ``decode_kernel``: decode runs in place over the pool through the
       paged-attention kernel, and a cold int8 page may resume *compressed*
       into a side pool that the kernel dequantises in its K/V load.
@@ -324,8 +334,8 @@ class PagedKVCacheManager(KVCacheManager):
         # ``id - (num+1)`` and the decode kernel dequantises them in the
         # K/V load.  Only codecs with an int8 payload are eligible.
         self._cframe_by_pid: Dict[int, Tuple] = {}   # pid -> (ci, codec,
-        self._cframe_free: List[int] = []            #   paths, scales,
-        self.cpool = self.cscale = None              #   dtypes)
+        self._cframe_free: List[int] = []            #   leaf scales)
+        self.cpool = self.cscale = None
         if self.decode_kernel:
             self.cpool = tree.map(
                 lambda c: torch.zeros(c.shape[:1] + (num,) + c.shape[2:],
@@ -337,6 +347,10 @@ class PagedKVCacheManager(KVCacheManager):
                 self.pool)
             self._cframe_free = list(range(num))
         self._cframe_adopts = 0
+        # pages decoded into the pool: refetched (not adopted) and side
+        # frames inflated -- one unpack launch each
+        self._decoded_refetches = 0
+        self._cframe_inflates = 0
         # decode-io metering: pages the attention reads per step
         cfg = m.cfg
         self._decode_window = cfg.window if cfg.attention == "swa" else 0
@@ -358,12 +372,10 @@ class PagedKVCacheManager(KVCacheManager):
         entry = self._cframe_by_pid.pop(pid, None)
         if entry is None:
             return
-        ci, codec_name, paths, scales, dtypes = entry
-        codec = get_codec(codec_name)
-        qleaves = tree.leaves(tree.map(lambda c: c[:, ci], self.cpool))
-        leaves = [decode_tensor(codec, q, s, d)
-                  for q, s, d in zip(qleaves, scales, dtypes)]
-        tfm.page_insert(self.pool, tree.unflatten(paths, leaves), pid)
+        ci, codec_name, scales = entry
+        decode_leaves(get_codec(codec_name), _frame(self.cpool, ci)[0],
+                      scales, _frame(self.pool, pid)[0])
+        self._cframe_inflates += 1
         self._cframe_free.append(ci)
         self._pmap_dev = None
 
@@ -441,15 +453,20 @@ class PagedKVCacheManager(KVCacheManager):
             "page eviction needs a spill tier " \
             "(PagedKVCacheManager(spill=None) cannot overcommit)"
         self._inflate_side_frame(pid)
-        leaves, paths = tree.flatten(tfm.page_slice(self.pool, pid))
         codec_name = self._codec_by_uid.get(uid)
         codec = get_codec(codec_name) if codec_name else None
+        frame, paths = _frame(self.pool, pid)
+        if codec is not None and codec.pack_leaves is not None \
+                and all(codec.applies_to(x) for x in frame):
+            # the whole page in one launch, read straight from the frame
+            coded = encode_leaves(codec, frame)
+        else:
+            leaves = tree.leaves(tfm.page_slice(self.pool, pid))
+            coded = [encode_tensor(codec, x)
+                     if codec is not None and codec.applies_to(x)
+                     else (x, None) for x in leaves]
         items = []
-        for x in leaves:
-            if codec is not None and codec.applies_to(x):
-                q, scale = encode_tensor(codec, x)
-            else:
-                q, scale = x, None
+        for x, (q, scale) in zip(frame, coded):
             payload = self.spill_runtime.stash(
                 q, TransferHints(dtype=q.dtype, batch_dim=0,
                                  allow_compress=False, name="kv_page"),
@@ -468,14 +485,20 @@ class PagedKVCacheManager(KVCacheManager):
         self._discard_page(entry)
         return qs
 
-    def _unstash_page(self, entry: _SpilledPage):
-        """Fetch + decode a spilled page into a raw page tree."""
-        codec = get_codec(entry.codec) if entry.codec else None
-        leaves = [q if scale is None else
-                  decode_tensor(codec, q, scale, dtype)
-                  for q, (_, scale, dtype) in zip(self._fetch_items(entry),
-                                                  entry.items)]
-        return tree.unflatten(entry.paths, leaves)
+    def _unstash_page(self, entry: _SpilledPage, pid: int) -> None:
+        """Fetch a spilled page (every payload, before any decode) into
+        frame ``pid``: raw leaves copied in, the coded ones decoded straight
+        into the frame in one launch."""
+        qs = self._fetch_items(entry)
+        frame = _frame(self.pool, pid)[0]
+        coded = [(q, scale, out) for q, (_, scale, _), out
+                 in zip(qs, entry.items, frame) if scale is not None]
+        for q, (_, scale, _), out in zip(qs, entry.items, frame):
+            if scale is None:
+                out.copy_(q)
+        if coded:
+            decode_leaves(get_codec(entry.codec), *zip(*coded))
+            self._decoded_refetches += 1
 
     def _discard_page(self, entry: _SpilledPage) -> None:
         for payload, _, _ in entry.items:
@@ -507,8 +530,7 @@ class PagedKVCacheManager(KVCacheManager):
             store[:, ci] = scale
 
         tree.map(set_scale, self.cscale, tree.unflatten(entry.paths, scales))
-        self._cframe_by_pid[pid] = (ci, entry.codec, entry.paths, scales,
-                                    [d for _, _, d in entry.items])
+        self._cframe_by_pid[pid] = (ci, entry.codec, scales)
         self._cframe_adopts += 1
         self._pmap_dev = None
 
@@ -546,13 +568,12 @@ class PagedKVCacheManager(KVCacheManager):
                     if self._compressible_resume(sess, pos, parked, inner):
                         self._adopt_compressed(inner, pid)
                         continue
-                    page = self._unstash_page(inner)
+                    self._unstash_page(inner, pid)
                 except Exception:
                     # the fetch failed AFTER the position went resident:
                     # roll it back to spilled over the (intact) payload
                     self.table.unset_resident(uid, pos, parked)
                     raise
-                tfm.page_insert(self.pool, page, pid)
         except Exception:
             # pool too hot to re-home every page: stay paused, the Engine
             # retries later
@@ -620,6 +641,10 @@ class PagedKVCacheManager(KVCacheManager):
                 self._decode_pages_gather * self._page_frame_bytes,
             "compressed_resident": len(self._cframe_by_pid),
             "compressed_adopts": self._cframe_adopts,
+        }
+        report["page_decodes"] = {
+            "refetched": self._decoded_refetches,
+            "inflated": self._cframe_inflates,
         }
         return report
 

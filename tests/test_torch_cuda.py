@@ -192,6 +192,105 @@ def test_pack_unpack_bit_exact(dev, name, dtype, rows, block_rows):
         assert torch.equal(y, ref.fp8_unpack_ref(q, s, block_rows, out))
 
 
+def _int8_exact(q, s, x, block_rows):
+    """The int8 pack's (q, s) of x (R, C) == its plain version, bit for
+    bit, and the shared unpack of them == its plain version in f32 and
+    bf16."""
+    qr, sr = ref.int8_pack_ref(x, block_rows)
+    assert torch.equal(q, qr) and torch.equal(s, sr)
+    for out in (torch.float32, torch.bfloat16):
+        y = offload_pack.fp8_unpack(q, s, block_rows=block_rows, dtype=out)
+        assert torch.equal(y, ref.fp8_unpack_ref(q, s, block_rows, out))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,cols,block_rows", [
+    (1440, 64, 1440),      # a smollm page leaf: one cluster
+    (4608, 80, 4608),      # a zamba2 page leaf: one cluster of 16
+    (8192, 576, 8192),     # a stashed activation: two passes
+    (1601, 63, 1601),      # 100,863 elements: numel % 16 != 0
+    (1600, 63, 16),        # 100 row blocks of 16 x 63
+    (1440, 63, 9),         # row blocks of 567: chunks straddle two
+    (1440, 64, 1),         # 1440 row blocks of one row
+])
+def test_int8_pack_regimes_and_tails(dev, dtype, rows, cols, block_rows):
+    """The int8 pack in both regimes (a row block on one cluster, or two
+    passes) and on ragged layouts, one launch a call; the unpack across
+    row-block boundaries inside a 16-code chunk."""
+    x = _codec_values(dev, dtype, rows, cols, rows + cols)
+    before = offload_pack.int8_pack.launches
+    q, s = offload_pack.int8_pack(x, block_rows=block_rows)
+    assert offload_pack.int8_pack.launches == before + 1
+    _int8_exact(q, s, x, block_rows)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_pack_zeros_and_ties(dev, dtype):
+    """All zeros (the scale clamps to 1e-30, every code 0), and half-way
+    ties: absmax 127 makes the scale exactly 1, so +-0.5, 2.5 and -3.5
+    round half to even (0, 0, 2, -4; rounding away from zero gives 1, -1,
+    3, -4)."""
+    z = torch.zeros((1440, 64), device=dev, dtype=dtype)
+    q, s = offload_pack.int8_pack(z, block_rows=1440)
+    _int8_exact(q, s, z, 1440)
+    assert float(s) == float(np.float32(1e-30)) and not q.any()
+    for rows, cols in ((1440, 64), (8192, 576)):     # both regimes
+        x = torch.zeros((rows, cols), device=dev, dtype=dtype)
+        x[0, :5] = torch.tensor([127.0, 0.5, -0.5, 2.5, -3.5])
+        x[rows - 1, -4:] = torch.tensor([0.5, -0.5, 2.5, -3.5])
+        q, s = offload_pack.int8_pack(x, block_rows=rows)
+        _int8_exact(q, s, x, rows)
+        assert float(s) == 1.0
+        assert q[0, :5].tolist() == [127, 0, 0, 2, -4]
+        assert q[rows - 1, -4:].tolist() == [0, 0, 2, -4]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(30, 16, 3, 64), (9, 16, 32, 80)])
+def test_int8_page_leaves_one_launch(dev, dtype, shape):
+    """A page's two leaves packed in one launch straight from the pool's
+    frame (the leaves 10^4 apart in magnitude: each keeps its own scale),
+    then decoded in one launch straight into another frame: bit for bit
+    what the per-leaf plain versions give, and no other frame is
+    written."""
+    G, page, K, hd = shape
+    g = torch.Generator(device="cpu").manual_seed(hd)
+    pools = [torch.randn((G, 5, page, K, hd), generator=g).to(dev, dtype)
+             * m for m in (1e-2, 1e2)]
+    xs = [p[:, 3] for p in pools]
+    before = offload_pack.int8_pack.launches
+    got = offload_pack.int8_pack_leaves(xs)
+    assert offload_pack.int8_pack.launches == before + 1
+    want = ref.int8_pack_leaves_ref([x.clone() for x in xs])
+    for (q, s), (qr, sr) in zip(got, want):
+        assert torch.equal(q, qr) and torch.equal(s, sr)
+    assert float(got[1][1]) > 1e3 * float(got[0][1])
+    for out_dtype in (torch.float32, torch.bfloat16):
+        frames = [torch.full((G, 4, page, K, hd), 7.0, device=dev,
+                             dtype=out_dtype) for _ in xs]
+        before = offload_pack.fp8_unpack.launches
+        offload_pack.unpack_leaves([q for q, _ in got],
+                                   [s for _, s in got],
+                                   [f[:, 2] for f in frames])
+        assert offload_pack.fp8_unpack.launches == before + 1
+        for f, (q, s) in zip(frames, got):
+            R = q.numel() // hd
+            assert torch.equal(f[:, 2], ref.fp8_unpack_ref(
+                q.reshape(R, hd), s.reshape(1), R, out_dtype)
+                .reshape(G, page, K, hd))
+            assert bool((f[:, [0, 1, 3]] == 7.0).all())
+
+
+def test_int8_leaves_reject_what_they_cannot_take(dev):
+    x = torch.randn((8, 16, 64), device=dev)
+    with pytest.raises(ValueError):          # not runs at one stride
+        offload_pack.int8_pack_leaves([x[:, 1:3, :8]])
+    with pytest.raises(TypeError):           # mixed dtypes in one launch
+        offload_pack.int8_pack_leaves([x, x.bfloat16()])
+    with pytest.raises(ValueError):          # more leaves than a launch holds
+        offload_pack.int8_pack_leaves([x] * (offload_pack.MAX_LEAVES + 1))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("S,T,d,causal,window", [
     (1024, 1024, 64, True, 0), (1024, 1024, 64, True, 256),
