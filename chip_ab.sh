@@ -7,8 +7,12 @@
 #   phase 7 -- full-width mamba2-370m, 10 steps of 8 x 1024 tokens, the
 #     same tier, the SSD scan kernel forward and recompute, then two
 #     profiled steps;
-#   codec -- the spill codec's page path and 8192 x 576 timed
-#     (tests/torch_codec_times.py of this checkout, run in each).
+#   codec -- every pack's page path, its stash shapes (8192 x 576,
+#     8192 x 1024; synthetic values and the layer inputs of a training
+#     step of smollm-135m and mamba2-370m) and the unpack timed
+#     (tests/torch_codec_times.py of this checkout, run in each; in a
+#     checkout with the one pack family each stash also forced through
+#     every regime).
 #
 #     bash chip_ab.sh DIR_A DIR_B [5|7|codec]
 #

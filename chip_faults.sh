@@ -16,13 +16,13 @@ MAIN='check_main_path_logits() check_paged(torch.device(0),{})'
 KERNEL='check_paged(torch.device(0),{})'
 FLASH='check_flash(torch.device(0),{},{}) check_train_flash_vs_plain()'
 CODEC='check_codec(torch.device(0),{},{})'
-INT8='check_int8_pages(torch.device(0),{},{})'
+PAGES='check_codec_pages(torch.device(0),{},{})'
 SSD='check_ssd(torch.device(0),{},{})'
 SSD_SERVE="$SSD check_ssm_serve_logits()"
 SSD_TRAIN="$SSD check_train_ssd_vs_plain()"
 GEMM='check_gemm(torch.device(0),{},{}) check_gemm_path()'
 ZAMBA='check_zamba2_serve_logits()'
-SHOW='main path logits|paged_decode_attention (float|bfloat)|ssd_scan rounding probe|flash_attention_fwd (float|bfloat)|training, |bit-exact|  ssd_scan (float|bfloat)|(mamba2|zamba2) logits|    (scan kernel|paged decode|plain bf16)|gemm_os (float|bfloat)|gemm path|state of the slots|    limits: float32|FAILED'
+SHOW='main path logits|reciprocal probe|paged_decode_attention (float|bfloat)|ssd_scan rounding probe|flash_attention_fwd (float|bfloat)|training, |bit-exact|  ssd_scan (float|bfloat)|(mamba2|zamba2) logits|    (scan kernel|paged decode|plain bf16)|gemm_os (float|bfloat)|gemm path|state of the slots|    limits: float32|FAILED'
 ONLY=" $* "
 
 fault() {   # name, file (from the checkout's root), sed expression, checks
@@ -106,28 +106,60 @@ fault fp8_scale_reciprocal $CSRC/offload_pack.cu \
 # quantises with its own partial absmax
 fault cluster_barrier_dropped $CSRC/offload_pack.cu \
   's|^  cluster.sync();  .*$||; s|\*cluster.map_shared_rank(&partial, threadIdx.x)|partial|' \
-  "$INT8"
+  "$PAGES"
 # int8 pack: the ragged chunks (the row block's tail) left unwritten
 fault int8_tail_unwritten $CSRC/offload_pack.cu \
   's/const unsigned m = n;/const unsigned m = 0;/' \
-  "$INT8"
+  "$PAGES"
 # unpack of a page: leaf 0's scale used for every leaf of the launch
 fault unpack_scale_of_leaf0 $CSRC/offload_pack.cu \
   's/const float s = __ldg(L.scales + b0);/const float s = __ldg(a.l[0].scales + b0);/' \
-  "$INT8"
+  "$PAGES"
 # int8 pack: round half away from zero (roundf) instead of half to even
 fault int8_round_not_rint $CSRC/offload_pack.cu \
   's/  return fminf(fmaxf(r, -127.f), 127.f) + kRound;/  return roundf(fminf(fmaxf(r, -127.f), 127.f)) + kRound;/' \
-  "$INT8"
+  "$PAGES"
 # unpack: one scale a 16-code chunk even where the chunk straddles two row
 # blocks
 fault unpack_scale_per_chunk $CSRC/offload_pack.cu \
   's|if (fdiv(e0 + n - 1, L.block_div) == b0) {|if (true) {|' \
-  "$INT8"
+  "$PAGES"
 # unpack: the bf16 cast truncated instead of rounded to nearest even
 fault unpack_bf16_truncated $CSRC/offload_pack.cu \
   's/__floats2bfloat162_rn(v\[2 \* j\], v\[2 \* j + 1\])/__halves2bfloat162(__float2bfloat16_rz(v[2 * j]), __float2bfloat16_rz(v[2 * j + 1]))/' \
-  "$INT8"
+  "$PAGES"
+# fp8 pack: the near-midpoint guard dropped -- every code from x times the
+# rounded reciprocal of the scale, never the IEEE quotient
+fault fp8_guard_dropped $CSRC/offload_pack.cu \
+  's/  if (near) {/  if (false) {/' \
+  "$CODEC"
+# fp8 pack: a value on an e4m3 midpoint (an exact tie) coded from the
+# product instead of the midpoint itself
+fault fp8_tie_as_product $CSRC/offload_pack.cu \
+  's/t\[j\] = fmaf(-m, s, v) == 0.f ? m : v \/ s;/t[j] = fmaf(-m, s, v) == 0.f ? t[j] : v \/ s;/' \
+  "$CODEC"
+# fp8 pack: a value near a midpoint but off it coded from the product
+fault fp8_off_tie_as_product $CSRC/offload_pack.cu \
+  's/t\[j\] = fmaf(-m, s, v) == 0.f ? m : v \/ s;/t[j] = fmaf(-m, s, v) == 0.f ? m : t[j];/' \
+  "$CODEC"
+# blocksparse pack: |x| equal to absmax / 32 pruned as well
+fault blocksparse_threshold_strict $CSRC/offload_pack.cu \
+  's/if (!(fabsf(to_float(x\[j\])) >= thr)) t\[j\] = kRound;/if (!(fabsf(to_float(x[j])) > thr)) t[j] = kRound;/' \
+  "$CODEC"
+# fp8 pack: the two codes of each e4m3x2 conversion swapped
+fault fp8x2_halves_swapped $CSRC/offload_pack.cu \
+  's/return __nv_cvt_float2_to_fp8x2(make_float2(lo, hi),/return __nv_cvt_float2_to_fp8x2(make_float2(hi, lo),/' \
+  "$CODEC"
+# fp8 pack (cluster regime) only: the cluster barrier dropped -- each block
+# quantises with its own partial absmax
+fault fp8_cluster_barrier_dropped $CSRC/offload_pack.cu \
+  's|^  cluster.sync();  .*$|  if (Q != kFp8) cluster.sync();|; s|\*cluster.map_shared_rank(&partial, threadIdx.x)|(Q == kFp8 ? partial : *cluster.map_shared_rank(\&partial, threadIdx.x))|' \
+  "$CODEC"
+# two passes: the last slice's partial absmax never written (the pass
+# folds whatever the scratch held)
+fault last_partial_unwritten $CSRC/offload_pack.cu \
+  's/if (threadIdx.x == 0) partials\[(size_t)(L.first + rb) \* slices + sl\] = m;/if (threadIdx.x == 0 \&\& sl + 1 < slices) partials[(size_t)(L.first + rb) * slices + sl] = m;/' \
+  "$PAGES"
 # SSD scan (bfloat16, tensor cores): the causal mask applied after the
 # exp (exp of the unbounded anti-causal entries overflows, and inf x 0 is
 # NaN)

@@ -26,11 +26,15 @@ Phases (each failure exits non-zero; nothing is caught and carried on):
               every tile of both paths and zamba2's MLP at 4096 tokens
               (blocks a path lacks must be refused), then driven once,
               counted, through its entry point: that MLP's two products.
-              The int8 pack and the shared unpack run a spilled page's
-              leaves in one launch each way, straight from and into a
-              full-width pool's frames (smollm's and zamba2's pages), and
-              are held bit-exact there, on half-way ties, ragged tails
-              and straddling row blocks, in both of the pack's regimes.
+              Every pack (fp8, int8, blocksparse) and the shared unpack
+              run a spilled page's leaves in one launch each way,
+              straight from and into a full-width pool's frames
+              (smollm's and zamba2's pages), and are held bit-exact
+              there, on half-way ties, ragged tails and straddling row
+              blocks, in each of the pack's regimes; the fp8 pack also on
+              its reciprocal probe: values whose code from x times the
+              rounded reciprocal of the scale is not that of x / scale
+              (limit 0 bytes).
 4. serve    — serves full-width smollm-135m (bf16, random weights from a
               seed) through ``repro_torch.launch.serve``: paged KV, in-place
               kernel decode, int8 spill codec through its kernels, an
@@ -461,33 +465,94 @@ def codec_case(dev, dtype, R, C, seed):
     """(R, C) values spread over magnitudes, with, in the first row, the
     block's absmax (448: the fp8 scale comes out 1.0 exactly), its
     negative, fp8 rounding ties (1.0625, -3.375), e4m3 subnormals and
-    their ties (2^-9; 1.5, -2.5 and -0.5 x 2^-9) and zeros; the lower
-    half of the rows is scaled into the subnormal range."""
+    their ties (2^-9; 1.5, -2.5 and -0.5 x 2^-9), zeros and the
+    blocksparse threshold absmax / 32 (+-14 kept, 13.875 pruned); the
+    lower half of the rows is scaled into the subnormal range."""
     g = torch.Generator(device=dev).manual_seed(seed)
     x = torch.randn((R, C), generator=g, device=dev) * 60
     x[R // 2:] *= 1e-3                      # small values: subnormal range
     special = torch.tensor([448.0, -448.0, 1.0625, -3.375, 2.0 ** -9,
                             1.5 * 2.0 ** -9, -2.5 * 2.0 ** -9,
-                            -(2.0 ** -10), 0.0, 447.9], device=dev)
+                            -(2.0 ** -10), 0.0, 447.9, 14.0, -14.0, 13.875],
+                           device=dev)
     x[0, :special.numel()] = special
     return x.clamp(-448.0, 448.0).to(dtype)
 
 
-def check_codec(dev, results, others):
-    """fp8, int8 and blocksparse packs and the shared unpack (int8 and fp8
-    payloads), bit-exact against their plain versions: at the training
-    shape as one row block (a whole stashed layer input), at the serving
-    page-leaf shape as 1, 9 and 90 row blocks, and at 4 value spreads.
-    Times go to ``results`` at each kernel's main-path shape and to
-    ``others`` at its other shape."""
+def codec_packs():
+    """``{name: (kernel wrapper, plain version, batched wrapper, batched
+    plain version)}`` of the three packs."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import offload_pack as kp
-    packs = {"fp8_pack": (kp.fp8_pack, ref.fp8_pack_ref),
-             "int8_pack": (kp.int8_pack, ref.int8_pack_ref),
-             "blocksparse_pack": (kp.blocksparse_pack,
-                                  ref.blocksparse_pack_ref)}
+    return {name: (getattr(kp, name), getattr(ref, name + "_ref"),
+                   getattr(kp, name + "_leaves"),
+                   getattr(ref, name + "_leaves_ref"))
+            for name in ("fp8_pack", "int8_pack", "blocksparse_pack")}
+
+
+PACK_SITES = {"fp8_pack": "src/repro/kernels/offload_pack.py:63",
+              "int8_pack": "src/repro/kernels/offload_pack.py:110",
+              "blocksparse_pack": "src/repro/kernels/offload_pack.py:143"}
+UNPACK_SITE = "src/repro/kernels/offload_pack.py:86"
+
+
+def codec_row(fn, plain, nbytes, n, replaces):
+    """A codec kernel's timing row: device and eager ms of ``fn``, its plain
+    version's device ms, and the bound of ``nbytes`` moved and 3 f32
+    operations an element of ``n``."""
+    b_ms, b_by = bound_ms(nbytes, 3.0 * n, PEAK_F32_FLOPS)
+    return dict(route="cuda",
+                source="src/repro_torch/kernels/csrc/offload_pack.cu",
+                replaces=replaces, max_abs_err=0.0, ms=device_ms(fn),
+                plain_ms=device_ms(plain), bound_ms=b_ms, bound_by=b_by,
+                library_ms=None, eager_ms=eager_ms(fn))
+
+
+def fp8_probe_differs(dev, rows, cols):
+    """The fp8 reciprocal probe (``offload_pack.fp8_probe``) packed on the
+    card, f32 and bf16: each probe row as one row block of a row, then
+    each row laid into a zero (rows, cols) tensor as one row block (both
+    of the pack's regimes).  Returns (probe values, payload bytes that
+    differ from the plain version)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import offload_pack as kp
+    n_vals, bad = 0, 0
+    for dtype in (torch.float32, torch.bfloat16):
+        probe = kp.fp8_probe(dtype).to(dev)
+        n_vals += int((probe != 0).sum()) - probe.shape[0]
+        cases = [(probe, 1)]
+        for row in probe:
+            x = torch.zeros((rows, cols), device=dev, dtype=dtype)
+            x.view(-1)[:row.numel()] = row
+            cases.append((x, rows))
+        for x, br in cases:
+            q, s = kp.fp8_pack(x, block_rows=br)
+            qr, sr = ref.fp8_pack_ref(x, br)
+            bad += int((q.view(torch.uint8) != qr.view(torch.uint8)).sum())
+            bad += int((s != sr).sum())
+    return n_vals, bad
+
+
+def check_codec(dev, results, others):
+    """The fp8 reciprocal probe (limit 0 bytes); then fp8, int8 and
+    blocksparse packs and the shared unpack (int8 and fp8 payloads),
+    bit-exact against their plain versions: at the training shape as one
+    row block (a whole stashed layer input), at the serving page-leaf
+    shape as 1, 9 and 90 row blocks, and at 4 value spreads.  Times go to
+    ``results`` at each kernel's main-path shape and to ``others`` at its
+    other shapes."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import offload_pack as kp
+    packs = codec_packs()
     train_rc = (8 * 1024, 576)       # one stashed layer input, full width
     leaf_rc = (30 * 16 * 3, 64)      # one spilled page leaf, full width
+    n_vals, bad = fp8_probe_differs(dev, *train_rc)
+    print(f"  fp8_pack reciprocal probe: {n_vals} values whose code from x "
+          "times 1/s rounded is not that of x / s (f32, bf16; exact ties "
+          "and values off them; normal and subnormal; scales 1.75 and "
+          f"1.875; every regime): {bad} bytes differ (limit 0)", flush=True)
+    if bad:
+        fail(f"fp8_pack reciprocal probe: {bad} bytes differ (limit 0)")
     n_cases = 0
     for dtype in (torch.float32, torch.bfloat16):
         cases = [(codec_case(dev, dtype, *train_rc, seed=4), (train_rc[0],))]
@@ -500,7 +565,7 @@ def check_codec(dev, results, others):
                       (leaf_rc[0],)))
         for x, brs in cases:
             for br in brs:
-                for name, (kern, plain) in packs.items():
+                for name, (kern, plain, _, _) in packs.items():
                     q, s = kern(x, block_rows=br)
                     qr, sr = plain(x, br)
                     if not (torch.equal(q.view(torch.uint8),
@@ -521,53 +586,50 @@ def check_codec(dev, results, others):
     torch.cuda.synchronize()
     print(f"  fp8_pack / int8_pack / blocksparse_pack and the shared unpack: "
           f"bit-exact over {n_cases} (tensor, row block, codec) cases "
-          "(f32 and bf16; 8192 x 576 as one row block with fp8 ties and "
-          "subnormals; 1440 x 64 as 1, 9 and 90 row blocks at 4 spreads; "
-          "all zeros)", flush=True)
+          "(f32 and bf16; 8192 x 576 as one row block with fp8 ties, "
+          "subnormals and the blocksparse threshold; 1440 x 64 as 1, 9 and "
+          "90 row blocks at 4 spreads; all zeros)", flush=True)
 
-    # times: each pack at its main path's shape (int8: the serving page
-    # leaf; fp8 and blocksparse: the training stash), the unpack at the
-    # training stash (fp8 payload), plus the other shape of each for the
-    # log
-    def timed(fn, plain, nbytes, ops, replaces, key, main):
-        b_ms, b_by = bound_ms(nbytes, ops, PEAK_F32_FLOPS)
-        if main:
-            key = key.split("@")[0]
-        (results if main else others)[key] = dict(
-            route="cuda",
-            source="src/repro_torch/kernels/csrc/offload_pack.cu",
-            replaces=replaces, max_abs_err=0.0, ms=device_ms(fn),
-            plain_ms=device_ms(plain), bound_ms=b_ms, bound_by=b_by,
-            library_ms=None, eager_ms=eager_ms(fn))
-
-    xt = codec_case(dev, torch.bfloat16, *train_rc, seed=5)
-    xl = (torch.randn(leaf_rc, device=dev) * 3).to(torch.bfloat16)
-    sites = {"fp8_pack": "src/repro/kernels/offload_pack.py:63",
-             "int8_pack": "src/repro/kernels/offload_pack.py:110",
-             "blocksparse_pack": "src/repro/kernels/offload_pack.py:143"}
-    for name, (kern, plain) in packs.items():
-        for x, tag in ((xt, "train"), (xl, "leaf")):
-            n, R = x.numel(), x.shape[0]
-            # the bound reads x once and writes a byte an element and a
-            # scale; fp8 and blocksparse read x twice (absmax, then
-            # quantise), the int8 pack once from HBM (a cluster's shared
-            # memory holds the row block) or, at 8192 x 576, twice with the
-            # second read in L2.  int8's main-path shape is the page
-            # (check_int8_pages)
-            timed(lambda: kern(x, block_rows=R), lambda: plain(x, R),
-                  n * 2 + n + 4, 3.0 * n, sites[name], f"{name}@{tag}",
-                  tag == "train" and name != "int8_pack")
-    for x, tag in ((xt, "train"), (xl, "leaf")):
+    # times, on randn values (their fp8 scale is no power of two, as a
+    # stash's almost always is; codec_case's absmax 448 makes it 1, where
+    # one bf16 value in 16 lies on an e4m3 midpoint and takes the fp8
+    # pack's slow path): fp8 and blocksparse at their main path's shape
+    # (the training stash of smollm), and at mamba2's stash and a page
+    # leaf for the log; int8 at 8192 x 576 and a page leaf for the log (its
+    # main-path row is the page, check_codec_pages); the unpack at the
+    # training stash (fp8 payload) and a page leaf.  Each pack's bound
+    # reads x once and writes a byte an element and a scale, as each pack
+    # reads x from HBM once (a row block in the registers of a cluster or
+    # of the card, or a second pass reading x from L2)
+    shapes = {"train": train_rc, "mamba2": (8 * 1024, 1024), "leaf": leaf_rc}
+    for tag, rc in shapes.items():
+        g = torch.Generator(device=dev).manual_seed(7)
+        x = (torch.randn(rc, generator=g, device=dev) * 3).to(torch.bfloat16)
         n, R = x.numel(), x.shape[0]
+        for name, (kern, plain, _, _) in packs.items():
+            if tag == "mamba2" and name == "int8_pack":
+                continue
+            main = tag == "train" and name != "int8_pack"
+            row = codec_row(lambda: kern(x, block_rows=R), lambda: plain(x, R),
+                            n * 2 + n + 4, n, PACK_SITES[name])
+            if main:
+                results[name] = row
+            else:
+                others[f"{name}@{tag}"] = row
+        if tag == "mamba2":
+            continue
         pack = kp.fp8_pack if tag == "train" else kp.int8_pack
         q, s = pack(x, block_rows=R)
-        timed(lambda: kp.fp8_unpack(q, s, block_rows=R),
-              lambda: ref.fp8_unpack_ref(q, s, R, torch.bfloat16),
-              n + 4 + 2 * n, 1.0 * n, "src/repro/kernels/offload_pack.py:86",
-              f"fp8_unpack@{tag}", tag == "train")
+        row = codec_row(lambda: kp.fp8_unpack(q, s, block_rows=R),
+                        lambda: ref.fp8_unpack_ref(q, s, R, torch.bfloat16),
+                        n + 4 + 2 * n, n, UNPACK_SITE)
+        if tag == "train":
+            results["fp8_unpack"] = row
+        else:
+            others["fp8_unpack@leaf"] = row
 
 
-def int8_page(dev, arch, num_pages, dtype, seed):
+def codec_page(dev, arch, num_pages, dtype, seed):
     """A full-width page pool of ``arch`` as the serving path allocates it
     (``transformer.paged_pool``: leaves (n_groups, num_pages + 1, 16, K,
     hd)), k 10^4 times smaller than v, random; returns the pool's leaves
@@ -583,105 +645,122 @@ def int8_page(dev, arch, num_pages, dtype, seed):
     return leaves, [c[:, 5] for c in leaves], [c[:, 9] for c in leaves]
 
 
-def check_int8_pages(dev, results, others):
-    """The int8 pack and the shared unpack on the serving page path: the
+def same_codes(got, want) -> bool:
+    """Two packs' ``[(q, scale)]`` agree bit for bit."""
+    return all(torch.equal(q.view(torch.uint8), qr.view(torch.uint8))
+               and torch.equal(s, sr) for (q, s), (qr, sr) in zip(got, want))
+
+
+def check_codec_pages(dev, results, others):
+    """Every pack and the shared unpack on the serving page path: the
     leaves of one page packed in one launch straight from a full-width
     pool's frame and decoded in one launch straight into another frame
     (smollm's page: 2 leaves of (30, 16, 3, 64); zamba2's: 2 of (9, 16,
     32, 80)), bit-exact against the plain versions leaf by leaf, float32
-    and bfloat16 pools; then half-way ties, ragged tails, row blocks whose
-    16-code chunks straddle two scales, all zeros, in both regimes (a row
-    block on one cluster, or two passes).  Times the page pack and unpack
-    (the int8 pack's main-path row) and 8192 x 576 in bfloat16."""
+    and bfloat16 pools, for each codec; then, for each pack, half-way ties,
+    ragged tails, row blocks whose 16-code chunks straddle two scales, all
+    zeros and an absmax in the last slice, in both regimes (a row block
+    on one cluster, or a stash-sized one in two passes).  Times each
+    codec's page pack and the page unpack (the int8 pack's main-path
+    row)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import offload_pack as kp
+    packs = codec_packs()
     pages = {"smollm-135m": 64, "zamba2-2.7b": 96}
     for dtype in (torch.float32, torch.bfloat16):
         for arch, num in pages.items():
-            leaves, src, dst = int8_page(dev, arch, num, dtype, seed=num)
-            got = kp.int8_pack_leaves(src)
-            want = ref.int8_pack_leaves_ref(src)
-            if not all(torch.equal(q, qr) and torch.equal(s, sr)
-                       for (q, s), (qr, sr) in zip(got, want)):
-                fail(f"int8 pack of a {arch} page ({dtype}) from the pool "
-                     "not bit-exact")
-            if not float(got[1][1]) > 1e3 * float(got[0][1]):
-                fail(f"int8 pack of a {arch} page: one scale for both leaves")
-            before = [c.clone() for c in leaves]
-            kp.unpack_leaves([q for q, _ in got], [s for _, s in got], dst)
-            for c, old, (q, s) in zip(leaves, before, got):
-                hd = q.shape[-1]
-                R = q.numel() // hd
-                if not torch.equal(c[:, 9], ref.fp8_unpack_ref(
-                        q.reshape(R, hd), s.reshape(1), R, dtype)
-                        .reshape(q.shape)):
-                    fail(f"unpack of a {arch} page into the pool ({dtype}) "
+            leaves, src, dst = codec_page(dev, arch, num, dtype, seed=num)
+            for name, (kern, _, kern_leaves, plain_leaves) in packs.items():
+                before = kern.launches, kp.fp8_unpack.launches
+                got = kern_leaves(src)
+                if not same_codes(got, plain_leaves(src)):
+                    fail(f"{name} of a {arch} page ({dtype}) from the pool "
                          "not bit-exact")
-                c[:, 9] = old[:, 9]
-                if not torch.equal(c, old):
-                    fail(f"unpack of a {arch} page wrote outside its frame")
-            del leaves, src, dst, before
+                if not float(got[1][1]) > 1e3 * float(got[0][1]):
+                    fail(f"{name} of a {arch} page: one scale for both "
+                         "leaves")
+                old = [c.clone() for c in leaves]
+                kp.unpack_leaves([q for q, _ in got], [s for _, s in got],
+                                 dst)
+                if (kern.launches, kp.fp8_unpack.launches) != (
+                        before[0] + 1, before[1] + 1):
+                    fail(f"{name}: a {arch} page took more than one pack "
+                         "and one unpack launch")
+                for c, was, (q, s) in zip(leaves, old, got):
+                    hd = q.shape[-1]
+                    R = q.numel() // hd
+                    if not torch.equal(c[:, 9], ref.fp8_unpack_ref(
+                            q.reshape(R, hd), s.reshape(1), R, dtype)
+                            .reshape(q.shape)):
+                        fail(f"unpack of a {arch} {name} page into the pool "
+                             f"({dtype}) not bit-exact")
+                    c[:, 9] = was[:, 9]
+                    if not torch.equal(c, was):
+                        fail(f"unpack of a {arch} page wrote outside its "
+                             "frame")
+                del old
+            del leaves, src, dst
     n_cases = 0
     for dtype in (torch.float32, torch.bfloat16):
         cases = []
-        for rows, cols in ((1440, 64), (8192, 576)):          # both regimes
+        for rows, cols in ((1440, 64), (8192, 576)):          # every regime
             x = torch.zeros((rows, cols), device=dev, dtype=dtype)
             x[0, :5] = torch.tensor([127.0, 0.5, -0.5, 2.5, -3.5])
             x[-1, -4:] = torch.tensor([0.5, -0.5, 2.5, -3.5])
             cases.append((x, rows, [127, 0, 0, 2, -4]))
             cases.append((torch.zeros_like(x), rows, None))
+            x = codec_case(dev, dtype, rows, cols, seed=rows + 1)
+            cases.append((x, rows, "last"))
         for rows, cols, br in ((1601, 63, 1601), (1600, 63, 16),
-                               (1440, 63, 9), (8193, 577, 8193)):
+                               (1440, 63, 9), (8193, 577, 8193),
+                               (8192, 1024, 8192)):
             cases.append((codec_case(dev, dtype, rows, cols, seed=rows + br),
                           br, None))
         for x, br, ties in cases:
-            q, s = kp.int8_pack(x, block_rows=br)
-            qr, sr = ref.int8_pack_ref(x, br)
-            ok = torch.equal(q, qr) and torch.equal(s, sr)
-            for out in (torch.float32, torch.bfloat16):
-                ok = ok and torch.equal(
-                    kp.fp8_unpack(q, s, block_rows=br, dtype=out),
-                    ref.fp8_unpack_ref(q, s, br, out))
-            if ties is not None:
-                ok = ok and q[0, :5].tolist() == ties \
-                    and q[-1, -4:].tolist() == ties[1:]
-            if not ok:
-                fail(f"int8 pack / unpack {dtype} {tuple(x.shape)} block_rows "
-                     f"{br}: not bit-exact")
-            n_cases += 1
+            for i, (name, (kern, plain, _, _)) in enumerate(packs.items()):
+                if ties == "last":   # an absmax in the last slice, of its own
+                    x[-1, -1] = 500.0 * (i + 2)
+                q, s = kern(x, block_rows=br)
+                qr, sr = plain(x, br)
+                ok = same_codes([(q, s)], [(qr, sr)])
+                for out in (torch.float32, torch.bfloat16):
+                    ok = ok and torch.equal(
+                        kp.fp8_unpack(q, s, block_rows=br, dtype=out),
+                        ref.fp8_unpack_ref(q, s, br, out))
+                if isinstance(ties, list) and name == "int8_pack":
+                    ok = ok and q[0, :5].tolist() == ties \
+                        and q[-1, -4:].tolist() == ties[1:]
+                if not ok:
+                    fail(f"{name} / unpack {dtype} {tuple(x.shape)} "
+                         f"block_rows {br}: not bit-exact")
+                n_cases += 1
     torch.cuda.synchronize()
-    print("  int8 pack and unpack of a full-width page, one launch each, from "
-          "and into the pool (smollm, zamba2; f32, bf16; leaves 1e4 apart): "
-          f"bit-exact; and over {n_cases} more cases (ties at absmax 127, "
-          "all zeros, both regimes; 1601 x 63, 100 row blocks of 16 x 63, "
-          "row blocks of 9 x 63, 8193 x 577): bit-exact", flush=True)
+    print("  fp8 / int8 / blocksparse pack and the unpack of a full-width "
+          "page, one launch each, from and into the pool (smollm, zamba2; "
+          "f32, bf16; leaves 1e4 apart): bit-exact; and over "
+          f"{n_cases} more (case, codec) pairs (ties at absmax 127, all "
+          "zeros, an absmax in the last slice, both regimes; 1601 x 63, "
+          "100 row blocks of 16 x 63, row blocks of 9 x 63, 8193 x 577, "
+          "8192 x 1024): bit-exact", flush=True)
 
-    site_pack = "src/repro/kernels/offload_pack.py:110"
-    site_unpack = "src/repro/kernels/offload_pack.py:86"
     for arch, num in pages.items():
-        leaves, src, dst = int8_page(dev, arch, num, torch.bfloat16, seed=1)
+        leaves, src, dst = codec_page(dev, arch, num, torch.bfloat16, seed=1)
         n = sum(x.numel() for x in src)
+        tag = "page" if arch == "smollm-135m" else "zamba2_page"
+        for name, (_, _, kern_leaves, plain_leaves) in packs.items():
+            row = codec_row(lambda: kern_leaves(src),
+                            lambda: plain_leaves(src),
+                            2 * n + n + 4 * len(src), n, PACK_SITES[name])
+            if name == "int8_pack" and tag == "page":  # the serving path's
+                results[name] = row
+            else:
+                others[f"{name}@{tag}"] = row
         got = kp.int8_pack_leaves(src)
         qs, ss = [q for q, _ in got], [s for _, s in got]
-        tag = "page" if arch == "smollm-135m" else "zamba2_page"
-        for key, fn, plain, nbytes, site in (
-                (f"int8_pack@{tag}", lambda: kp.int8_pack_leaves(src),
-                 lambda: ref.int8_pack_leaves_ref(src),
-                 2 * n + n + 4 * len(src), site_pack),
-                (f"fp8_unpack@{tag}", lambda: kp.unpack_leaves(qs, ss, dst),
-                 lambda: ref.unpack_leaves_ref(qs, ss, dst),
-                 n + 4 * len(src) + 2 * n, site_unpack)):
-            b_ms, b_by = bound_ms(nbytes, 3.0 * n, PEAK_F32_FLOPS)
-            row = dict(
-                route="cuda",
-                source="src/repro_torch/kernels/csrc/offload_pack.cu",
-                replaces=site, max_abs_err=0.0, ms=device_ms(fn),
-                plain_ms=device_ms(plain), bound_ms=b_ms, bound_by=b_by,
-                library_ms=None, eager_ms=eager_ms(fn))
-            if key == "int8_pack@page":       # the serving path's call
-                results["int8_pack"] = row
-            else:
-                others[key] = row
+        others[f"fp8_unpack@{tag}"] = codec_row(
+            lambda: kp.unpack_leaves(qs, ss, dst),
+            lambda: ref.unpack_leaves_ref(qs, ss, dst),
+            n + 4 * len(src) + 2 * n, n, UNPACK_SITE)
         del leaves, src, dst
 
 
@@ -1858,10 +1937,11 @@ def main() -> None:
           f"({len(built)} libraries)", flush=True)
 
     phase("phase 3: kernels against their plain versions")
+    t0 = time.perf_counter()
     results, others = {}, {}
     check_paged(dev, results)
     check_codec(dev, results, others)
-    check_int8_pages(dev, results, others)
+    check_codec_pages(dev, results, others)
     check_flash(dev, results, others)
     check_ssd(dev, results, others)
     check_zamba2_kernels(dev, others)
@@ -1873,6 +1953,7 @@ def main() -> None:
               f"{r['eager_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, "
               f"library {lib} ms, bound {r['bound_ms']:.6f} ms "
               f"({r['bound_by']})", flush=True)
+    print(f"  phase 3: {time.perf_counter() - t0:.1f} s wall", flush=True)
 
     phase("phase 4: serving main path (full-width smollm-135m, bf16)")
     check_main_path_logits()

@@ -14,7 +14,7 @@ frames in place.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Sequence, Tuple
 
 import torch
 
@@ -25,18 +25,17 @@ class Codec:
     """One stash codec: its pack / unpack kernels.
 
     ``pack``/``unpack`` take ``(x_2d, *, block_rows)`` /
-    ``(q_2d, scales, *, block_rows, dtype)``; ``pack_leaves`` (None: the
-    codec packs leaf by leaf) / ``unpack_leaves`` take ``(xs)`` /
-    ``(qs, scales, outs)``, each leaf one row block, in one launch.
+    ``(q_2d, scales, *, block_rows, dtype)``; ``pack_leaves`` /
+    ``unpack_leaves`` take ``(xs)`` / ``(qs, scales, outs)``, each leaf one
+    row block, in one launch.
     """
 
     name: str
     ratio: float                                   # stashed bytes per raw byte
     pack: Callable[..., Tuple[torch.Tensor, torch.Tensor]]
     unpack: Callable[..., torch.Tensor]
+    pack_leaves: Callable[..., List[Tuple[torch.Tensor, torch.Tensor]]]
     unpack_leaves: Callable[..., None]
-    pack_leaves: Optional[Callable[..., List[Tuple[torch.Tensor,
-                                                   torch.Tensor]]]] = None
 
     def applies_to(self, x: torch.Tensor) -> bool:
         return x.is_floating_point()
@@ -65,11 +64,12 @@ def _register_builtin_codecs() -> None:
     # is built on its first launch
     from repro_torch.kernels import offload_pack as kp
     register_codec(Codec("fp8", 0.5, kp.fp8_pack, kp.fp8_unpack,
-                         kp.unpack_leaves))
+                         kp.fp8_pack_leaves, kp.unpack_leaves))
     register_codec(Codec("int8", 0.5, kp.int8_pack, kp.int8_unpack,
-                         kp.unpack_leaves, kp.int8_pack_leaves))
+                         kp.int8_pack_leaves, kp.unpack_leaves))
     register_codec(Codec("blocksparse", 0.5, kp.blocksparse_pack,
-                         kp.blocksparse_unpack, kp.unpack_leaves))
+                         kp.blocksparse_unpack, kp.blocksparse_pack_leaves,
+                         kp.unpack_leaves))
 
 
 _register_builtin_codecs()
@@ -101,9 +101,7 @@ def encode_leaves(codec: Codec, xs: Sequence[torch.Tensor]
                   ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
     """:func:`encode_tensor` of every leaf of ``xs`` (views, e.g. a page's
     frames ``pool[:, pid]``, read in place) in one launch of the codec's
-    batched pack; the codec must have one (``codec.pack_leaves``)."""
-    if codec.pack_leaves is None:
-        raise ValueError(f"codec {codec.name!r} packs leaf by leaf")
+    batched pack."""
     return codec.pack_leaves(xs)
 
 

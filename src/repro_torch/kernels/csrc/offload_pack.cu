@@ -1,5 +1,5 @@
-// Stash / spill codec kernels for Hopper (sm_90a): blockwise pack with
-// three quantisers and the shared unpack.
+// Stash / spill codec kernels for Hopper (sm_90a): one blockwise pack
+// templated on three quantisers, and the shared unpack.
 //
 // Replaces the Pallas TPU kernels in src/repro/kernels/offload_pack.py:
 //   * fp8_pack    (`_pack_kernel`, pl.pallas_call at :63): per row block
@@ -12,8 +12,10 @@
 //   * fp8_unpack = int8_unpack = blocksparse_unpack (`_unpack_kernel`,
 //     pl.pallas_call at :86): (q * scale) cast to the output dtype, for
 //     int8 and float8_e4m3fn payloads.
-// All must be bit-exact against their plain versions: the division stays
-// IEEE x/scale (no fast math), int8 rounding is rintf (half to even, like
+// All must be bit-exact against their plain versions: a code is that of
+// the IEEE quotient x/scale (no fast math; the multiply by the rounded
+// reciprocal stands in for it only where it provably gives the same code,
+// see int_codes and fp8_codes), int8 rounding is half to even (like
 // jnp.round), the fp8 cast is cvt.rn.satfinite (round to nearest even; the
 // codec keeps |x/scale| <= 448 up to one ulp, which rounds to 448 as the
 // reference's cast does) and the bf16 cast is round-to-nearest-even.
@@ -24,53 +26,48 @@
 // a spilled page (a few hundred KB) the floor is a fraction of a
 // microsecond and launches and latency set the time.
 //
-// The int8 pack and the shared unpack work on *leaves*: up to kMaxLeaves
-// tensors in one launch, each described by value in the kernel's
-// parameters (no pointer table copied to the card).  A leaf's elements, in
-// logical order, are runs of `run_len` contiguous elements, one run every
-// `src_stride` (`dst_stride` on the other side), so a page is read from, or
-// written into, a pool frame in place: a pool leaf (n_groups, frames, page,
-// K, hd) holds page `pid` as n_groups runs of page*K*hd elements.  A leaf is
-// cut into row blocks of `block_elems` elements, one scale each (a page
-// leaf is one row block).  Work goes in chunks of 16 elements: a chunk that
-// lies inside one run, at 16-byte aligned addresses, moves as 16-byte
-// accesses (16 codes in one store); any other chunk (the ragged tail of a
-// row block, a row block that starts off alignment) element by element.
+// Both work on *leaves*: up to kMaxLeaves tensors in one launch, each
+// described by value in the kernel's parameters (no pointer table copied
+// to the card).  A leaf's elements, in logical order, are runs of
+// `run_len` contiguous elements, one run every `src_stride` (`dst_stride`
+// on the other side), so a page is read from, or written into, a pool
+// frame in place: a pool leaf (n_groups, frames, page, K, hd) holds page
+// `pid` as n_groups runs of page*K*hd elements.  A leaf is cut into row
+// blocks of `block_elems` elements, one scale each (a page leaf is one row
+// block; a stashed activation is one row block of a one-leaf launch).
+// Work goes in chunks of 16 elements: a chunk that lies inside one run, at
+// 16-byte aligned addresses, moves as 16-byte accesses (16 codes in one
+// store); any other chunk (the ragged tail of a row block, a row block
+// that starts off alignment) element by element.
 //
-// int8 pack, a row block that fits on chip in one thread-block cluster
-// (every page leaf of the main paths, up to 16 x 512 x 4 chunks): one
-// launch, x read once.  A cluster of up to 16 blocks takes one row block;
-// each block loads its slice into registers (16-byte loads, up to 4 chunks
-// a thread), reduces a partial absmax with warp shuffles and publishes it
-// in shared memory; after the cluster barrier every block reads the
-// cluster's partials through distributed shared memory, derives the one
-// scale (the same quotient in every block) and quantises its slice from
-// its registers (no round trip through shared memory).  No memset, no
-// atomic.  A cluster runs inside one GPC, whose share of the L2 bandwidth
-// and instruction rate bounds a large row block: a zamba2 page runs faster
-// through the two-pass form over every SM, at one more launch on a
-// host-bound serving loop (PERF.md has the times, from chip_ab.sh codec).
-// A larger row block (8192 x 576, one stashed activation): two launches,
-// pass 1 writes one partial absmax a slice, pass 2 folds its row block's
-// partials into the scale and quantises, re-reading x while it is in the
-// 50 MB L2.  Nothing needs zeroing: every partial is written each call.
+// The pack, one kernel family for every quantiser (Q), in two regimes:
+//   * a row block that fits on chip in one thread-block cluster (every
+//     page leaf of the main paths, up to 16 x 512 x 4 chunks): one launch,
+//     x read once.  A cluster of up to 16 blocks takes one row block; each
+//     block loads its slice into registers (16-byte loads, up to 4 chunks
+//     a thread), reduces a partial absmax with warp shuffles and publishes
+//     it in shared memory; after the cluster barrier every block reads the
+//     cluster's partials through distributed shared memory, derives the
+//     one scale (the same quotient in every block) and quantises its slice
+//     from its registers.  A cluster runs inside one GPC, whose share of
+//     the L2 bandwidth and instruction rate bounds a large row block;
+//   * a row block too large for a cluster (a stashed layer input, 8192 x
+//     576 or 8192 x 1024): two launches over every SM, pass 1 writes one
+//     partial absmax a slice, pass 2 folds its row block's partials into
+//     the scale and quantises, re-reading x while it is in the 50 MB L2.
+// No memset and no atomic in either: every partial is written each call.
 //
-// A code is clip(rint(x / s), +-127) of the IEEE quotient.  x * (1/s)
-// rounded lies within 2^-15 of it, so it is used wherever it is not within
-// 2^-12 of a half integer (a chunk holding such a value divides), and the
-// rounding to an integer is the add of 1.5 x 2^23 (half to even, as rintf),
-// whose low byte is the code: no conversion instruction (an SM runs
-// conversions at a fraction of its rate of adds).
+// A code is computed from x * (1/s rounded), with the IEEE quotient x / s
+// taken for a whole chunk where one of its values lies close enough to a
+// rounding boundary that the two could round apart (int8: a half integer;
+// fp8: an e4m3 midpoint).  int8 rounds by the add of 1.5 x 2^23, whose low
+// byte is the code; fp8 converts two values an instruction
+// (cvt.rn.satfinite.e4m3x2.f32).
 //
 // The shared unpack: one chunk of 16 codes a thread (one 16-byte load),
 // the row block's scale found once a chunk with 32-bit index math (per
 // element only in a chunk that straddles two row blocks), fp8 decoded two
 // at a time (exact into half, then float), 16-byte stores.
-//
-// fp8_pack and blocksparse_pack keep the first design: pass 1 folds
-// per-thread-block partial absmaxes into the row block's absmax with
-// atomicMax on the bits of the non-negative float (a max is exact in any
-// order), pass 2 has every thread block derive the scale and quantise.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -82,11 +79,16 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr long long kElemsPerBlock = 16384;   // pack slice per thread block
-constexpr int kMaxSlices = 1024;              // thread blocks per row block
-
 enum Quant { kInt8 = 0, kFp8 = 1, kBlocksparse = 2 };
+
+constexpr unsigned kVec = 16;      // elements a chunk: 16 codes, 16 bytes
+constexpr int kMaxLeaves = 16;
+constexpr int kClusterThreads = 512;  // a cluster block
+constexpr int kRegChunks = 4;         // chunks a cluster thread holds, at most
+constexpr int kPassThreads = 256;     // a two-pass block
+constexpr int kUnpackThreads = 64;    // an unpack block (small: a page
+                                      // leaf spreads over more SMs)
+constexpr unsigned kBatch = 2;        // chunks a thread in a two-pass slice
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
@@ -108,121 +110,6 @@ __device__ __forceinline__ float scale_of(float absmax) {
   return Q == kFp8 ? fmaxf(absmax / 448.0f, 1e-12f)
                    : fmaxf(absmax / 127.0f, 1e-30f);
 }
-
-template <int Q>
-struct Payload { using type = int8_t; };
-template <>
-struct Payload<kFp8> { using type = uint8_t; };   // float8_e4m3fn bits
-
-template <int Q>
-__device__ __forceinline__ typename Payload<Q>::type quantise(
-    float v, float s, float absmax) {
-  if constexpr (Q == kFp8) {
-    return (uint8_t)__nv_cvt_float_to_fp8(v / s, __NV_SATFINITE, __NV_E4M3);
-  } else {
-    const float r = fminf(fmaxf(rintf(v / s), -127.f), 127.f);
-    if constexpr (Q == kBlocksparse) {
-      if (!(fabsf(v) >= absmax / 32.0f)) return (int8_t)0;
-    }
-    return (int8_t)r;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// fp8 and blocksparse packs (first design: two passes over x)
-
-// slice [lo, hi) of row block blockIdx.y handled by thread block blockIdx.x
-__device__ __forceinline__ void slice_of(long long block_elems,
-                                         long long& lo, long long& hi) {
-  const long long per = (block_elems + gridDim.x - 1) / gridDim.x;
-  lo = (long long)blockIdx.x * per;
-  hi = lo + per < block_elems ? lo + per : block_elems;
-}
-
-// pass 1: absmax of each row block, folded over its thread blocks
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    absmax_kernel(const T* __restrict__ x, unsigned int* __restrict__ amax,
-                  long long block_elems) {
-  const T* xb = x + (size_t)blockIdx.y * block_elems;
-  long long lo, hi;
-  slice_of(block_elems, lo, hi);
-  __shared__ float warp_max[kThreads / 32];
-  float m = 0.f;
-  for (long long i = lo + threadIdx.x; i < hi; i += kThreads)
-    m = fmaxf(m, fabsf(to_float(xb[i])));
-  for (int o = 16; o > 0; o >>= 1)
-    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = m;
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    m = threadIdx.x < kThreads / 32 ? warp_max[threadIdx.x] : 0.f;
-    for (int o = 16; o > 0; o >>= 1)
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-    // non-negative floats order as their bit patterns
-    if (threadIdx.x == 0) atomicMax(amax + blockIdx.y, __float_as_uint(m));
-  }
-}
-
-// pass 2: every thread block quantises its slice with the row block's scale
-template <typename T, int Q>
-__global__ void __launch_bounds__(kThreads)
-    quantise_kernel(const T* __restrict__ x,
-                    typename Payload<Q>::type* __restrict__ q,
-                    const unsigned int* __restrict__ amax,
-                    float* __restrict__ scales, long long block_elems) {
-  const size_t base = (size_t)blockIdx.y * block_elems;
-  const float absmax = __uint_as_float(amax[blockIdx.y]);
-  const float s = scale_of<Q>(absmax);
-  if (blockIdx.x == 0 && threadIdx.x == 0) scales[blockIdx.y] = s;
-  long long lo, hi;
-  slice_of(block_elems, lo, hi);
-  for (long long i = lo + threadIdx.x; i < hi; i += kThreads)
-    q[base + i] = quantise<Q>(to_float(x[base + i]), s, absmax);
-}
-
-template <typename T, int Q>
-void launch_pack(const void* x, void* q, void* scales, void* amax, int nb,
-                 long long block_elems, cudaStream_t s) {
-  long long slices = (block_elems + kElemsPerBlock - 1) / kElemsPerBlock;
-  if (slices > kMaxSlices) slices = kMaxSlices;
-  const dim3 grid((unsigned)slices, (unsigned)nb);
-  absmax_kernel<T><<<grid, kThreads, 0, s>>>(
-      (const T*)x, (unsigned int*)amax, block_elems);
-  quantise_kernel<T, Q><<<grid, kThreads, 0, s>>>(
-      (const T*)x, (typename Payload<Q>::type*)q, (const unsigned int*)amax,
-      (float*)scales, block_elems);
-}
-
-template <int Q>
-int pack(int dtype, const void* x, void* q, void* scales, void* amax,
-         long long rows, long long cols, long long block_rows, void* stream) {
-  const int nb = (int)(rows / block_rows);
-  const long long block_elems = block_rows * cols;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (nb > 65535) return (int)cudaErrorInvalidValue;     // grid.y limit
-  cudaError_t e = cudaMemsetAsync(amax, 0, sizeof(unsigned int) * nb, s);
-  if (e != cudaSuccess) return (int)e;
-  if (dtype == 0)
-    launch_pack<float, Q>(x, q, scales, amax, nb, block_elems, s);
-  else if (dtype == 1)
-    launch_pack<__nv_bfloat16, Q>(x, q, scales, amax, nb, block_elems, s);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// leaves: the int8 pack and the shared unpack
-
-constexpr unsigned kVec = 16;      // elements a chunk: 16 codes, 16 bytes
-constexpr int kMaxLeaves = 16;
-constexpr int kClusterThreads = 512;  // a cluster block
-constexpr int kRegChunks = 4;         // chunks a cluster thread holds, at most
-constexpr int kPassThreads = 256;     // a two-pass block
-constexpr int kUnpackThreads = 64;    // an unpack block (small: a page
-                                      // leaf spreads over more SMs)
-constexpr unsigned kBatch = 2;        // chunks a thread in a two-pass slice
 
 // one leaf as the wrapper passes it (ctypes: 3 pointers, 5 int64)
 struct LeafArg {
@@ -332,7 +219,7 @@ __device__ __forceinline__ float chunk_absmax(const uint4* r) {
 
 // 1.5 x 2^23: for |r| < 2^22, r + kRound is r rounded to an integer, half
 // to even (the add's own rounding), held in the float's low mantissa bits:
-// its low byte is that integer's int8 code
+// its low byte is that integer's int8 code (0 for kRound itself)
 constexpr float kRound = 12582912.0f;
 
 // clip(r, +-127) rounded half to even, as the low byte of the result's bits
@@ -342,16 +229,16 @@ __device__ __forceinline__ float round_code(float r) {
   return fminf(fmaxf(r, -127.f), 127.f) + kRound;
 }
 
-// quantise a chunk (its words in registers) with scale s and store its n
-// codes at e0 of dst.  A code is clip(rint(v / s), +-127) with v / s the
-// IEEE quotient.  |v / s| <= 127 and a few ulps, so v * inv (inv = 1/s
-// rounded) lies within 2^-15 of that quotient and rounds to the same
-// integer unless it lies within 2^-12 of a half integer: a chunk with such
-// a value takes the quotient itself
-template <typename T>
-__device__ __forceinline__ void store_codes(const Leaf& L, unsigned e0,
-                                            unsigned n, const uint4* r,
-                                            float s) {
+// int8 and blocksparse codes of a chunk (its words in registers), four a
+// word.  A code is clip(rint(v / s), +-127) with v / s the IEEE quotient.
+// |v / s| <= 127 and a few ulps, so v * inv (inv = 1/s rounded) lies
+// within 2^-15 of that quotient and rounds to the same integer unless it
+// lies within 2^-12 of a half integer: a chunk with such a value takes
+// the quotient itself.  blocksparse then prunes !(|v| >= absmax / 32) to
+// code 0, absmax * 2^-5 being that quotient exactly
+template <typename T, int Q>
+__device__ __forceinline__ void int_codes(const uint4* r, float s,
+                                          float absmax, uint32_t* c) {
   const T* x = (const T*)r;
   const float inv = 1.0f / s;
   float t[kVec];
@@ -367,7 +254,12 @@ __device__ __forceinline__ void store_codes(const Leaf& L, unsigned e0,
 #pragma unroll
     for (int j = 0; j < (int)kVec; ++j) t[j] = round_code(to_float(x[j]) / s);
   }
-  uint32_t c[4];
+  if constexpr (Q == kBlocksparse) {
+    const float thr = absmax * 0x1p-5f;
+#pragma unroll
+    for (int j = 0; j < (int)kVec; ++j)
+      if (!(fabsf(to_float(x[j])) >= thr)) t[j] = kRound;
+  }
 #pragma unroll
   for (int k = 0; k < 4; ++k)
     c[k] = __byte_perm(__byte_perm(__float_as_uint(t[4 * k]),
@@ -375,9 +267,101 @@ __device__ __forceinline__ void store_codes(const Leaf& L, unsigned e0,
                        __byte_perm(__float_as_uint(t[4 * k + 2]),
                                    __float_as_uint(t[4 * k + 3]), 0x40),
                        0x5410);
-  int8_t* q = (int8_t*)L.dst;
+}
+
+// ulps of a product that count as near an e4m3 midpoint (see fp8_codes)
+constexpr int kFp8Near = 8;
+
+// whether v lies within kFp8Near ulps of a rounding midpoint of e4m3.  A
+// normal e4m3 value (|v| >= 2^-6) has 3 mantissa bits, so a midpoint is a
+// float whose mantissa has bit 19 set and bits 18..0 clear: the distance
+// is the low 20 bits less 2^19, in ulps of v.  Below 2^-6 the e4m3 step
+// is a fixed 2^-9 and the midpoints are the odd multiples of 2^-10 (2^-10
+// itself, between 0 and the least subnormal, included): |v| + 2^-6 maps
+// them onto the midpoints of [2^-6, 2^-5), whose e4m3 step is 2^-9 too,
+// with a rounding error of half an ulp there.  The nearest midpoints lie
+// 2^19 ulps from a power of two, so v's own binade is the one to
+// test in
+__device__ __forceinline__ bool near_midpoint(float v) {
+  float a = fabsf(v);
+  a = a < 0x1p-6f ? a + 0x1p-6f : a;
+  const int d = (int)(__float_as_uint(a) & 0xFFFFFu) - 0x80000;
+  return abs(d) < kFp8Near;
+}
+
+// the e4m3 midpoint nearest v (of v's sign), for v near one: in v's
+// binade, or, below 2^-6, in that of |v| + 2^-6 less 2^-6 (exact)
+__device__ __forceinline__ float midpoint_of(float v) {
+  const float a = fabsf(v);
+  const bool sub = a < 0x1p-6f;
+  const unsigned b = __float_as_uint(sub ? a + 0x1p-6f : a);
+  const float m = __uint_as_float((b & ~0xFFFFFu) | 0x80000u);
+  return copysignf(sub ? m - 0x1p-6f : m, v);
+}
+
+// two e4m3 codes: lo in the low byte (the lower address)
+__device__ __forceinline__ uint32_t fp8x2(float lo, float hi) {
+  return __nv_cvt_float2_to_fp8x2(make_float2(lo, hi), __NV_SATFINITE,
+                                  __NV_E4M3);
+}
+
+// fp8 codes of a chunk, four a word.  A code is e4m3(q) of the IEEE
+// quotient q = v / s rounded.  p = v * inv (inv = 1/s rounded) carries two
+// roundings of at most 2^-24 relative each, q one: |p - q| < 3 x 2^-24 |p|
+// (up to a factor 1 + 2^-22), which is under 3 ulps of p for a normal
+// e4m3 value and under 1.5 ulps of |p| + 2^-6 below 2^-6.  A midpoint has
+// 5 significant bits, so it is exact in f32 and p lies a whole number of
+// ulps from it: at 4 or more (3 below 2^-6, after the half ulp of the
+// add), q lies on p's side and is not the midpoint itself, so both round
+// to the same code.  A value nearer than kFp8Near ulps takes the quotient
+// q, which is the midpoint m itself where v = m s exactly (an exact tie:
+// bf16 data holds many, e.g. v = absmax x 3/16 lands on 84, and one bf16
+// value in 16 lies on a midpoint at a scale of 1): fma(-m, s, v) is 0
+// just then (a nonzero v - m s is a multiple of 2^-149 at least, and
+// rounds to no zero), and only a value near a midpoint but not on it
+// divides.  Saturation: |q| exceeds 448 by an ulp at most and rounds to
+// 448 either way
+template <typename T>
+__device__ __forceinline__ void fp8_codes(const uint4* r, float s,
+                                          uint32_t* c) {
+  const T* x = (const T*)r;
+  const float inv = 1.0f / s;
+  float t[kVec];
+  unsigned near = 0;                     // a bit a value near a midpoint
+#pragma unroll
+  for (int j = 0; j < (int)kVec; ++j) {
+    t[j] = to_float(x[j]) * inv;
+    near |= (unsigned)near_midpoint(t[j]) << j;
+  }
+  if (near) {
+#pragma unroll
+    for (int j = 0; j < (int)kVec; ++j) {
+      if (near & (1u << j)) {
+        const float v = to_float(x[j]), m = midpoint_of(t[j]);
+        t[j] = fmaf(-m, s, v) == 0.f ? m : v / s;
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    c[k] = fp8x2(t[4 * k], t[4 * k + 1]) |
+           (fp8x2(t[4 * k + 2], t[4 * k + 3]) << 16);
+}
+
+// quantise a chunk (its words in registers) with scale s (of the row
+// block's absmax) and store its n codes at e0 of dst
+template <typename T, int Q>
+__device__ __forceinline__ void store_codes(const Leaf& L, unsigned e0,
+                                            unsigned n, const uint4* r,
+                                            float s, float absmax) {
+  uint32_t c[4];
+  if constexpr (Q == kFp8)
+    fp8_codes<T>(r, s, c);
+  else
+    int_codes<T, Q>(r, s, absmax, c);
+  uint8_t* q = (uint8_t*)L.dst;
   const Spot at = locate(L, e0, n);
-  int8_t* p = q + at.dst;
+  uint8_t* p = q + at.dst;
   if (at.whole && aligned16(p)) {
     *(uint4*)p = make_uint4(c[0], c[1], c[2], c[3]);
   } else {                               // ragged: code by code
@@ -386,7 +370,7 @@ __device__ __forceinline__ void store_codes(const Leaf& L, unsigned e0,
     for (unsigned j = 0; j < kVec; ++j)
       if (j < m)
         *elem(q, L.dst_stride, L.run_len, e0 + j) =
-            (int8_t)(c[j / 4] >> (8 * (j % 4)));
+            (uint8_t)(c[j / 4] >> (8 * (j % 4)));
   }
 }
 
@@ -403,11 +387,11 @@ __device__ __forceinline__ float block_max(float m, float* warp_max) {
   return m;
 }
 
-// int8 pack, a row block a cluster: grid (row blocks x cluster, leaves).
+// the pack, a row block a cluster: grid (row blocks x cluster, leaves).
 // A block holds its slice in registers, up to kRegChunks chunks a thread
-template <typename T>
+template <typename T, int Q>
 __global__ void __launch_bounds__(kClusterThreads)
-    int8_pack_cluster_kernel(__grid_constant__ const Leaves a) {
+    pack_cluster_kernel(__grid_constant__ const Leaves a) {
   __shared__ float warp_max[kClusterThreads / 32];
   __shared__ float partial, absmax;
   cg::cluster_group cluster = cg::this_cluster();
@@ -446,24 +430,25 @@ __global__ void __launch_bounds__(kClusterThreads)
   // this block reads no other block's shared memory after here
   asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
   __syncthreads();
-  const float s = scale_of<kInt8>(absmax);
+  const float am = absmax, s = scale_of<Q>(am);
   if (rank == 0 && threadIdx.x == 0) L.scales[rb] = s;
 #pragma unroll
   for (int i = 0; i < kRegChunks; ++i) {
     const unsigned c = c0 + threadIdx.x + i * kClusterThreads;
     if (c < c1)
-      store_codes<T>(L, base + c * kVec, min(kVec, L.block_elems - c * kVec),
-                     w[i], s);
+      store_codes<T, Q>(L, base + c * kVec,
+                        min(kVec, L.block_elems - c * kVec), w[i], s, am);
   }
   // stay until the others have read this block's partial
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
-// int8 pack, larger row blocks, pass 1: the partial absmax of each slice
-// (kPassThreads x kBatch chunks) into partials[(first + rb) * slices + sl]
+// larger row blocks, pass 1 (every quantiser): the partial absmax of each
+// slice (kPassThreads x kBatch chunks) into partials[(first + rb) * slices
+// + sl]
 template <typename T>
 __global__ void __launch_bounds__(kPassThreads)
-    int8_absmax_kernel(__grid_constant__ const Leaves a,
+    pack_absmax_kernel(__grid_constant__ const Leaves a,
                        float* __restrict__ partials, unsigned slices) {
   __shared__ float warp_max[kPassThreads / 32];
   const Leaf& L = a.l[blockIdx.y];
@@ -490,9 +475,9 @@ __global__ void __launch_bounds__(kPassThreads)
 }
 
 // pass 2: the row block's scale from its partials, then quantise the slice
-template <typename T>
+template <typename T, int Q>
 __global__ void __launch_bounds__(kPassThreads)
-    int8_quantise_kernel(__grid_constant__ const Leaves a,
+    pack_quantise_kernel(__grid_constant__ const Leaves a,
                          const float* __restrict__ partials,
                          unsigned slices) {
   __shared__ float warp_max[kPassThreads / 32];
@@ -517,14 +502,14 @@ __global__ void __launch_bounds__(kPassThreads)
   m = block_max<kPassThreads>(m, warp_max);
   if (threadIdx.x == 0) absmax = m;
   __syncthreads();
-  const float s = scale_of<kInt8>(absmax);
+  const float am = absmax, s = scale_of<Q>(am);
   if (sl == 0 && threadIdx.x == 0) L.scales[rb] = s;
 #pragma unroll
   for (unsigned b = 0; b < kBatch; ++b) {
     const unsigned c = (sl * kBatch + b) * kPassThreads + threadIdx.x;
     if (c < chunks)
-      store_codes<T>(L, base + c * kVec, min(kVec, L.block_elems - c * kVec),
-                     w[b], s);
+      store_codes<T, Q>(L, base + c * kVec,
+                        min(kVec, L.block_elems - c * kVec), w[b], s, am);
   }
 }
 
@@ -656,16 +641,16 @@ unsigned long long to_leaves(int n, const LeafArg* in, Leaves& a,
   return first;
 }
 
-template <typename T>
-int launch_int8_pack(const Leaves& a, int n, unsigned max_rb,
-                     unsigned max_block, int cluster, unsigned slices,
-                     float* partials, cudaStream_t s) {
+template <typename T, int Q>
+int launch_pack(const Leaves& a, int n, unsigned max_rb, unsigned max_block,
+                int cluster, unsigned slices, float* partials,
+                cudaStream_t s) {
   cudaError_t e;
   if (cluster > 0) {
     const unsigned chunks = (max_block + kVec - 1) / kVec;
     if ((chunks + cluster - 1) / cluster > kClusterThreads * kRegChunks)
       return (int)cudaErrorInvalidValue;   // the slice outgrows registers
-    auto kern = int8_pack_cluster_kernel<T>;
+    auto kern = pack_cluster_kernel<T, Q>;
     static bool non_portable = false;    // per instantiation, set once
     if (cluster > 8 && !non_portable) {
       e = cudaFuncSetAttribute(
@@ -676,7 +661,6 @@ int launch_int8_pack(const Leaves& a, int n, unsigned max_rb,
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(max_rb * (unsigned)cluster, (unsigned)n);
     cfg.blockDim = dim3(kClusterThreads);
-    cfg.dynamicSmemBytes = 0;
     cfg.stream = s;
     cudaLaunchAttribute attr[1];
     attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -690,11 +674,24 @@ int launch_int8_pack(const Leaves& a, int n, unsigned max_rb,
   } else {
     if (slices < 1 || partials == nullptr) return (int)cudaErrorInvalidValue;
     const dim3 grid(max_rb * slices, (unsigned)n);
-    int8_absmax_kernel<T><<<grid, kPassThreads, 0, s>>>(a, partials, slices);
-    int8_quantise_kernel<T><<<grid, kPassThreads, 0, s>>>(a, partials,
-                                                           slices);
+    pack_absmax_kernel<T><<<grid, kPassThreads, 0, s>>>(a, partials, slices);
+    pack_quantise_kernel<T, Q><<<grid, kPassThreads, 0, s>>>(a, partials,
+                                                              slices);
   }
   return (int)cudaGetLastError();
+}
+
+template <int Q>
+int pack_dtype(int dtype, const Leaves& a, int n, unsigned max_rb,
+               unsigned max_block, int cluster, unsigned slices,
+               float* partials, cudaStream_t s) {
+  if (dtype == 0)
+    return launch_pack<float, Q>(a, n, max_rb, max_block, cluster, slices,
+                                 partials, s);
+  if (dtype == 1)
+    return launch_pack<__nv_bfloat16, Q>(a, n, max_rb, max_block, cluster,
+                                         slices, partials, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 template <typename P>
@@ -715,45 +712,33 @@ int launch_unpack(int dtype, const Leaves& a, int n, unsigned max_numel,
 
 }  // namespace
 
-// Packs (fp8, blocksparse).  dtype: 0 float32, 1 bfloat16 (of x).  x:
-// (rows, cols) row-major; rows % block_rows == 0; q: fp8 or int8 bytes
-// (rows, cols); scales: f32 (rows / block_rows); amax: scratch of
-// rows / block_rows 32-bit words.
-extern "C" int fp8_pack(int dtype, const void* x, void* q, void* scales,
-                        void* amax, long long rows, long long cols,
-                        long long block_rows, void* stream) {
-  return pack<kFp8>(dtype, x, q, scales, amax, rows, cols, block_rows,
-                    stream);
-}
-
-extern "C" int blocksparse_pack(int dtype, const void* x, void* q,
-                                void* scales, void* amax, long long rows,
-                                long long cols, long long block_rows,
-                                void* stream) {
-  return pack<kBlocksparse>(dtype, x, q, scales, amax, rows, cols,
-                            block_rows, stream);
-}
-
-// The int8 pack over n leaves (src x, dst codes, scales written).  dtype:
-// 0 float32, 1 bfloat16 (of x).  cluster > 0: a row block a cluster of
-// that many blocks; cluster 0: two passes of `slices` blocks a row block,
-// with partials a scratch of (row blocks over all leaves) x slices floats.
-extern "C" int int8_pack_leaves(int dtype, int n, const void* leaves,
-                                int cluster, int slices, void* partials,
-                                void* stream) {
+// The pack over n leaves (src x, dst codes, scales written).  quant: 0
+// int8, 1 fp8 (float8_e4m3fn codes), 2 blocksparse; dtype: 0 float32, 1
+// bfloat16 (of x).  cluster > 0: a row block a cluster of that many
+// blocks; cluster 0: two passes of `slices` blocks a row block, with
+// partials a scratch of (row blocks over all leaves) x slices floats.
+extern "C" int pack_leaves(int quant, int dtype, int n, const void* leaves,
+                           int cluster, int slices, void* partials,
+                           void* stream) {
   Leaves a = {};
   unsigned max_rb, max_block;
   if (!to_leaves(n, (const LeafArg*)leaves, a, max_rb, max_block) ||
       cluster < 0 || cluster > 16 || slices < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
-    return launch_int8_pack<float>(a, n, max_rb, max_block, cluster,
-                                   (unsigned)slices, (float*)partials, s);
-  if (dtype == 1)
-    return launch_int8_pack<__nv_bfloat16>(a, n, max_rb, max_block, cluster,
-                                           (unsigned)slices,
-                                           (float*)partials, s);
+  float* pr = (float*)partials;
+  const unsigned sl = (unsigned)slices;
+  switch (quant) {
+    case kInt8:
+      return pack_dtype<kInt8>(dtype, a, n, max_rb, max_block, cluster, sl,
+                               pr, s);
+    case kFp8:
+      return pack_dtype<kFp8>(dtype, a, n, max_rb, max_block, cluster, sl,
+                              pr, s);
+    case kBlocksparse:
+      return pack_dtype<kBlocksparse>(dtype, a, n, max_rb, max_block,
+                                      cluster, sl, pr, s);
+  }
   return (int)cudaErrorInvalidValue;
 }
 

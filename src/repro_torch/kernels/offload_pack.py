@@ -5,15 +5,18 @@ Wrappers of ``csrc/offload_pack.cu`` (the CUDA twins of the Pallas
 ``fp8_pack`` / ``int8_pack`` / ``blocksparse_pack`` / ``fp8_unpack`` in the
 reference's ``kernels/offload_pack.py``).  A tensor on the CPU takes the
 plain version in ``kernels/ref.py``; a CUDA tensor launches the kernel or
-raises.  Each wrapper counts its launches in ``.launches``; the unpack is
-one kernel for every payload type (``int8_unpack`` and
-``blocksparse_unpack`` are ``fp8_unpack``, as in the reference), so its
-count covers every codec's fetch.
+raises.  The three packs are one kernel family templated on the
+quantiser, launched through :func:`_pack_launch`; each pack counts its
+own launches in ``.launches``.  The unpack is one kernel for every
+payload type (``int8_unpack`` and ``blocksparse_unpack`` are
+``fp8_unpack``, as in the reference), so its count covers every codec's
+fetch.
 
-The int8 pack and the unpack also take the leaves of one spilled page in
-one launch (:func:`int8_pack_leaves`, :func:`unpack_leaves`), read from or
-written into their pool frames in place; those launches count on
-``int8_pack.launches`` and ``fp8_unpack.launches``.
+Every pack and the unpack also take the leaves of one spilled page in one
+launch (:func:`fp8_pack_leaves`, :func:`int8_pack_leaves`,
+:func:`blocksparse_pack_leaves`, :func:`unpack_leaves`), read from or
+written into their pool frames in place; those launches count on the
+codec's pack and on ``fp8_unpack.launches``.
 """
 from __future__ import annotations
 
@@ -27,13 +30,15 @@ from repro_torch.kernels import build, ref
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _PAYLOAD_CODE = {torch.int8: 0, torch.float8_e4m3fn: 1}
+#: each pack's quantiser (``Quant`` of csrc/offload_pack.cu) and payload
+_QUANT = {"int8_pack": (0, torch.int8), "fp8_pack": (1, torch.float8_e4m3fn),
+          "blocksparse_pack": (2, torch.int8)}
 _I64, _PTR, _INT = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
-_PACK_ARGS = (_INT, _PTR, _PTR, _PTR, _PTR, _I64, _I64, _I64, _PTR)
-_PACK_LEAVES_ARGS = (_INT, _INT, _PTR, _INT, _INT, _PTR, _PTR)
+_PACK_LEAVES_ARGS = (_INT, _INT, _INT, _PTR, _INT, _INT, _PTR, _PTR)
 _UNPACK_LEAVES_ARGS = (_INT, _INT, _INT, _PTR, _PTR)
 
 #: the kernels' constants (csrc/offload_pack.cu): elements a chunk (16
-#: codes: one 16-byte store), leaves a launch; the int8 pack's threads a
+#: codes: one 16-byte store), leaves a launch; the pack's threads a
 #: cluster block and chunks each holds in registers, threads a two-pass
 #: block and chunks each takes
 VEC, MAX_LEAVES = 16, 16
@@ -63,7 +68,7 @@ def _dtype_code(dtype: torch.dtype, name: str) -> int:
 
 
 def pack_plan(block_elems: int, itemsize: int) -> Tuple[int, int]:
-    """How the int8 pack covers row blocks of ``block_elems`` elements of
+    """How the pack covers row blocks of ``block_elems`` elements of
     ``itemsize`` bytes: ``(cluster, 0)`` when a row block fits in the
     registers of one cluster (the fewest blocks, up to 16, that keep a
     block's slice near 12 KB), else ``(0, slices)``: two passes of
@@ -133,7 +138,6 @@ def _leaf(name: str, src: torch.Tensor, dst: torch.Tensor, scales: int,
                  block_elems)
 
 
-
 def _on_card(tensors: Sequence[torch.Tensor], name: str) -> bool:
     """True when every tensor lies on the card, False when every one lies
     on the CPU; raises for a mix."""
@@ -143,115 +147,119 @@ def _on_card(tensors: Sequence[torch.Tensor], name: str) -> bool:
     return cuda == {True}
 
 
-def _pack(wrapper: Callable, payload: torch.dtype, plain: Callable,
-          x: torch.Tensor, block_rows: int
-          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    name = wrapper.__name__
-    R, C = x.shape
-    if R % block_rows:
-        raise ValueError(f"{name}: {R} rows are not a multiple of "
-                         f"block_rows {block_rows}")
-    if not x.is_cuda:
-        return plain(x, block_rows)
-    code = _dtype_code(x.dtype, name)
-    x = x.contiguous()
-    nb = R // block_rows
-    q = torch.empty((R, C), dtype=payload, device=x.device)
-    scales = torch.empty((nb,), dtype=torch.float32, device=x.device)
-    if x.numel():
-        amax = torch.empty((nb,), dtype=torch.int32, device=x.device)
-        fn = build.function("offload_pack", name, _PACK_ARGS)
-        _check(fn(code, x.data_ptr(), q.data_ptr(), scales.data_ptr(),
-                  amax.data_ptr(), R, C, block_rows,
-                  torch.cuda.current_stream(x.device).cuda_stream), name)
-        wrapper.launches += 1
-    return q, scales
-
-
-def fp8_pack(x: torch.Tensor, *, block_rows: int = 128
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (R, C) -> (q: float8_e4m3fn (R, C), scales: f32
-    (R // block_rows,))."""
-    return _pack(fp8_pack, torch.float8_e4m3fn, ref.fp8_pack_ref, x,
-                 block_rows)
-
-
-def _int8_pack_launch(leaves: Sequence[Tuple[torch.Tensor, torch.Tensor,
-                                             int, int]]) -> None:
-    """One launch of the int8 pack over ``(x, q, scales address,
-    block_elems)`` leaves on the card (the regime from the largest row
-    block's bytes)."""
+def _pack_launch(pack: Callable, leaves: Sequence[Tuple[torch.Tensor,
+                                                        torch.Tensor, int,
+                                                        int]]) -> None:
+    """One launch of ``pack``'s quantiser over ``(x, q, scales address,
+    block_elems)`` leaves on the card (the regime from :func:`pack_plan`
+    on the largest row block; two passes count as one), counted on
+    ``pack.launches``."""
+    name = pack.__name__
     xs = [x for x, _, _, _ in leaves]
     dtypes = {x.dtype for x in xs}
     if len(dtypes) != 1:
-        raise TypeError(f"int8_pack: leaves of mixed dtypes {dtypes}")
-    dtype = dtypes.pop()
-    code = _dtype_code(dtype, "int8_pack")
+        raise TypeError(f"{name}: leaves of mixed dtypes {dtypes}")
+    code = _dtype_code(dtypes.pop(), name)
     if len(leaves) > MAX_LEAVES:
-        raise ValueError(f"int8_pack: {len(leaves)} leaves, at most "
+        raise ValueError(f"{name}: {len(leaves)} leaves, at most "
                          f"{MAX_LEAVES} a launch")
-    descs = (_Leaf * len(leaves))(*[_leaf("int8_pack", *lf)
-                                    for lf in leaves])
+    descs = (_Leaf * len(leaves))(*[_leaf(name, *lf) for lf in leaves])
+    dev = xs[0].device
     cluster, slices = pack_plan(max(b for _, _, _, b in leaves),
                                 xs[0].element_size())
     partials = None
     if not cluster:
         n_rb = sum(x.numel() // b for x, _, _, b in leaves)
         partials = torch.empty((n_rb * slices,), dtype=torch.float32,
-                               device=xs[0].device)
-    fn = build.function("offload_pack", "int8_pack_leaves",
-                        _PACK_LEAVES_ARGS)
-    _check(fn(code, len(leaves), ctypes.addressof(descs), cluster, slices,
+                               device=dev)
+    fn = build.function("offload_pack", "pack_leaves", _PACK_LEAVES_ARGS)
+    _check(fn(_QUANT[name][0], code, len(leaves), ctypes.addressof(descs),
+              cluster, slices,
               None if partials is None else partials.data_ptr(),
-              torch.cuda.current_stream(xs[0].device).cuda_stream),
-           "int8_pack")
-    int8_pack.launches += 1
+              torch.cuda.current_stream(dev).cuda_stream), name)
+    pack.launches += 1
 
 
-def int8_pack(x: torch.Tensor, *, block_rows: int = 128
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (R, C) -> (q: int8 (R, C), scales: f32 (R // block_rows,))."""
+def _pack(pack: Callable, plain: Callable, x: torch.Tensor,
+          block_rows: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``pack`` of x (R, C) in row blocks of ``block_rows`` rows: one leaf
+    of R // block_rows row blocks."""
+    name = pack.__name__
     R, C = x.shape
     if R % block_rows:
-        raise ValueError(f"int8_pack: {R} rows are not a multiple of "
+        raise ValueError(f"{name}: {R} rows are not a multiple of "
                          f"block_rows {block_rows}")
     if not x.is_cuda:
-        return ref.int8_pack_ref(x, block_rows)
+        return plain(x, block_rows)
     x = x.contiguous()
-    q = torch.empty((R, C), dtype=torch.int8, device=x.device)
+    q = torch.empty((R, C), dtype=_QUANT[name][1], device=x.device)
     scales = torch.empty((R // block_rows,), dtype=torch.float32,
                          device=x.device)
     if x.numel():
-        _int8_pack_launch([(x, q, scales.data_ptr(), block_rows * C)])
+        _pack_launch(pack, [(x, q, scales.data_ptr(), block_rows * C)])
     return q, scales
 
 
-def int8_pack_leaves(xs: Sequence[torch.Tensor]
-                     ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
-    """Each leaf (a view: e.g. a page's frame ``pool[:, pid]``, read in
-    place) as ONE row block, all in one launch: ``[(q int8 shaped like x,
-    0-d f32 scale)]``, what :func:`int8_pack` gives on each leaf's
-    flattened ``(-1, cols)`` copy with ``block_rows`` its rows."""
-    if not _on_card(xs, "int8_pack_leaves"):
-        return ref.int8_pack_leaves_ref(xs)
+def _pack_leaves(pack: Callable, plain: Callable,
+                 xs: Sequence[torch.Tensor]
+                 ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """``pack`` of each leaf (a view, read in place) as ONE row block, all
+    in one launch."""
+    name = pack.__name__
+    if not _on_card(xs, name + "_leaves"):
+        return plain(xs)
     scales = torch.empty((len(xs),), dtype=torch.float32,
                          device=xs[0].device)
-    qs = [torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    qs = [torch.empty(x.shape, dtype=_QUANT[name][1], device=x.device)
           for x in xs]
     at = scales.data_ptr()
     leaves = [(x, q, at + 4 * i, x.numel())
               for i, (x, q) in enumerate(zip(xs, qs)) if x.numel()]
     if leaves:
-        _int8_pack_launch(leaves)
+        _pack_launch(pack, leaves)
     return list(zip(qs, scales.unbind()))
+
+
+def fp8_pack(x: torch.Tensor, *, block_rows: int = 128
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (R, C) -> (q: float8_e4m3fn (R, C), scales: f32
+    (R // block_rows,))."""
+    return _pack(fp8_pack, ref.fp8_pack_ref, x, block_rows)
+
+
+def int8_pack(x: torch.Tensor, *, block_rows: int = 128
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (R, C) -> (q: int8 (R, C), scales: f32 (R // block_rows,))."""
+    return _pack(int8_pack, ref.int8_pack_ref, x, block_rows)
 
 
 def blocksparse_pack(x: torch.Tensor, *, block_rows: int = 128
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (R, C) -> (q: int8 (R, C) with |x| < absmax / 32 pruned to exact
     zeros, scales: f32 (R // block_rows,))."""
-    return _pack(blocksparse_pack, torch.int8, ref.blocksparse_pack_ref, x,
-                 block_rows)
+    return _pack(blocksparse_pack, ref.blocksparse_pack_ref, x, block_rows)
+
+
+def fp8_pack_leaves(xs: Sequence[torch.Tensor]
+                    ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """Each leaf (a view: e.g. a page's frame ``pool[:, pid]``, read in
+    place) as ONE row block, all in one launch: ``[(q float8_e4m3fn shaped
+    like x, 0-d f32 scale)]``, what :func:`fp8_pack` gives on each leaf's
+    flattened ``(-1, cols)`` copy with ``block_rows`` its rows."""
+    return _pack_leaves(fp8_pack, ref.fp8_pack_leaves_ref, xs)
+
+
+def int8_pack_leaves(xs: Sequence[torch.Tensor]
+                     ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """:func:`fp8_pack_leaves` with the int8 quantiser (q int8)."""
+    return _pack_leaves(int8_pack, ref.int8_pack_leaves_ref, xs)
+
+
+def blocksparse_pack_leaves(xs: Sequence[torch.Tensor]
+                            ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """:func:`fp8_pack_leaves` with the blocksparse quantiser (q int8)."""
+    return _pack_leaves(blocksparse_pack, ref.blocksparse_pack_leaves_ref,
+                        xs)
 
 
 def _unpack_launch(leaves: Sequence[Tuple[torch.Tensor, torch.Tensor,
@@ -321,6 +329,48 @@ def unpack_leaves(qs: Sequence[torch.Tensor], scales: Sequence[torch.Tensor],
               if q.numel()]
     if leaves:
         _unpack_launch(leaves)
+
+
+# e4m3's rounding midpoints below 448: 5 significant bits from 2^-6 up,
+# and the odd multiples of 2^-10 below (a fixed step of 2^-9)
+_FP8_MIDPOINTS = sorted(
+    [2.0 ** e * (1 + (2 * k + 1) / 16) for e in range(-6, 9) for k in range(8)
+     if 2.0 ** e * (1 + (2 * k + 1) / 16) < ref.FP8_MAX]
+    + [(j + 0.5) * 2.0 ** -9 for j in range(8)])
+
+
+def fp8_probe(dtype: torch.dtype, absmaxes: Sequence[float] = (784.0, 840.0)
+              ) -> torch.Tensor:
+    """Row blocks (on the CPU, one a row, zero-padded) on which an fp8 pack
+    that multiplies by the rounded reciprocal of the scale, instead of
+    dividing by it, gives other codes.  Row i opens with ``absmaxes[i]``,
+    so its scale s = absmax / 448 rounded is no power of two; the rest of
+    the row are the ``dtype`` values x near ``s`` times an e4m3 midpoint,
+    of both signs, in the normal and the subnormal range, for which
+    e4m3(x * (1/s rounded)) differs from e4m3(x / s) (every such value
+    within 4 f32 or 2 bf16 ulps of a midpoint's multiple: exact ties x =
+    midpoint x s, and in f32 values just off them)."""
+    bits, steps = ((torch.int32, range(-4, 5)) if dtype == torch.float32
+                   else (torch.int16, range(-2, 3)))
+    mids = torch.tensor(_FP8_MIDPOINTS, dtype=torch.float32)
+    mids = torch.cat([mids, -mids])
+    rows = []
+    for absmax in absmaxes:
+        a = torch.tensor([absmax], dtype=dtype).float()
+        scale = ref.true_div(a, ref.FP8_MAX)
+        near = (mids * scale).to(dtype).view(bits)
+        x = torch.cat([(near + k).view(dtype) for k in steps]).float()
+        x = x[x.abs() <= a]
+        prod = (x * ref.true_div(torch.ones(1), float(scale))).to(
+            torch.float8_e4m3fn).view(torch.uint8)
+        quot = ref.true_div(x, float(scale)).to(
+            torch.float8_e4m3fn).view(torch.uint8)
+        rows.append(torch.cat([a, x[prod != quot].unique()]))
+    width = -(-max(len(r) for r in rows) // 64) * 64
+    out = torch.zeros((len(rows), width))
+    for i, r in enumerate(rows):
+        out[i, :len(r)] = r
+    return out.to(dtype)
 
 
 #: dequantize-by-scale has no payload-specific logic: the int8 and

@@ -130,17 +130,34 @@ def fp8_unpack_ref(q: torch.Tensor, scale: torch.Tensor, block_rows: int,
 int8_unpack_ref = fp8_unpack_ref
 
 
-def int8_pack_leaves_ref(xs: Sequence[torch.Tensor]
-                         ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
-    """The batched int8 pack, leaf by leaf: each leaf's flattened
-    ``(-1, cols)`` view as one row block -> ``[(q shaped like x, 0-d
-    scale)]``."""
+def _pack_leaves_ref(pack_ref, xs: Sequence[torch.Tensor]
+                     ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """A batched pack, leaf by leaf: each leaf's flattened ``(-1, cols)``
+    view as one row block -> ``[(q shaped like x, 0-d scale)]``."""
     out = []
     for x in xs:
         x2 = x.reshape(-1, x.shape[-1])
-        q, s = int8_pack_ref(x2, x2.shape[0])
+        q, s = pack_ref(x2, x2.shape[0])
         out.append((q.reshape(x.shape), s[0]))
     return out
+
+
+def fp8_pack_leaves_ref(xs: Sequence[torch.Tensor]
+                        ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """The batched fp8 pack, leaf by leaf."""
+    return _pack_leaves_ref(fp8_pack_ref, xs)
+
+
+def int8_pack_leaves_ref(xs: Sequence[torch.Tensor]
+                         ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """The batched int8 pack, leaf by leaf."""
+    return _pack_leaves_ref(int8_pack_ref, xs)
+
+
+def blocksparse_pack_leaves_ref(xs: Sequence[torch.Tensor]
+                                ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """The batched blocksparse pack, leaf by leaf."""
+    return _pack_leaves_ref(blocksparse_pack_ref, xs)
 
 
 def unpack_leaves_ref(qs: Sequence[torch.Tensor],

@@ -456,8 +456,7 @@ class PagedKVCacheManager(KVCacheManager):
         codec_name = self._codec_by_uid.get(uid)
         codec = get_codec(codec_name) if codec_name else None
         frame, paths = _frame(self.pool, pid)
-        if codec is not None and codec.pack_leaves is not None \
-                and all(codec.applies_to(x) for x in frame):
+        if codec is not None and all(codec.applies_to(x) for x in frame):
             # the whole page in one launch, read straight from the frame
             coded = encode_leaves(codec, frame)
         else:

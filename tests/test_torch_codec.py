@@ -1,9 +1,10 @@
-"""The spill codec's page path on the CPU: the batched int8 pack and the
-shared unpack (``kernels/offload_pack.int8_pack_leaves`` /
-``unpack_leaves`` through ``core/compress.encode_leaves`` /
-``decode_leaves``) against the per-leaf ``encode_tensor`` /
-``decode_tensor`` and the reference's int8 codec, and the paged cache
-manager's evict / resume / inflate cycle against the per-leaf path.
+"""The spill codec's page path on the CPU: the batched packs of every codec
+and the shared unpack (``kernels/offload_pack.{fp8,int8,blocksparse}_
+pack_leaves`` / ``unpack_leaves`` through ``core/compress.encode_leaves``
+/ ``decode_leaves``) against the per-leaf ``encode_tensor`` /
+``decode_tensor`` and the reference's codecs, the paged cache manager's
+evict / resume / inflate cycle against the per-leaf path, and the fp8
+reciprocal probe (``offload_pack.fp8_probe``).
 
 On the CPU every wrapper takes its plain version (``kernels/ref.py``); the
 CUDA kernels are held to those in ``tests/test_torch_cuda.py`` on the card.
@@ -13,6 +14,8 @@ payload is held bit for bit wherever that scale equals the IEEE quotient,
 and to one code where it does not (as ``test_torch_train.py`` holds them);
 the reference's plain twin is held bit for bit everywhere.
 """
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -31,6 +34,7 @@ from repro_torch.serve.quota import TenantQuota
 from repro_torch.serve.scheduler import FairScheduler
 
 INT8 = compress.get_codec("int8")
+CODECS = ("fp8", "int8", "blocksparse")
 
 
 def _pool(rng, G, frames, page, K, hd, dtype):
@@ -84,6 +88,40 @@ def test_encode_leaves_matches_per_leaf_and_reference(dtype):
             assert np.abs(codes - want).max() <= 1
 
 
+JPACKS = {"fp8": (jpack.fp8_pack, jref.fp8_pack_ref, 448.0),
+          "blocksparse": (jpack.blocksparse_pack, jref.blocksparse_pack_ref,
+                          127.0)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("codec", sorted(JPACKS))
+def test_pack_leaves_refs_match_the_pallas_packs(codec, dtype):
+    """The fp8 and blocksparse batched packs' plain twins, leaf by leaf,
+    bit for bit against the reference's Pallas packs in interpret mode and
+    its plain twins.  Each leaf's absmax is set to qmax x 2^k (k its own),
+    where the scale the Pallas kernel takes under jit (absmax x f32(1 /
+    qmax)) equals the IEEE quotient, so its codes must agree too."""
+    jkern, jplain, qmax = JPACKS[codec]
+    xs = [x.clone() for x in _leaves(dtype)]
+    for x in xs:
+        top = float(x.float().abs().max())
+        x.view(-1)[7] = qmax * 2.0 ** math.ceil(math.log2(top / qmax))
+    got = getattr(offload_pack, codec + "_pack_leaves")(xs)
+    want = getattr(ref, codec + "_pack_leaves_ref")(xs)
+    for x, (q, s), (qw, sw) in zip(xs, got, want):
+        assert q.shape == x.shape and s.ndim == 0
+        assert torch.equal(q.view(torch.uint8), qw.view(torch.uint8))
+        assert torch.equal(s, sw)
+        x2 = _jax(x.reshape(-1, x.shape[-1]))
+        R = x2.shape[0]
+        codes = q.reshape(R, -1).view(torch.uint8).numpy()
+        for jq, js in (jkern(x2, block_rows=R, interpret=True),
+                       jplain(x2, R)):
+            assert float(js[0]) == float(s)
+            np.testing.assert_array_equal(codes,
+                                          np.asarray(jq).view(np.uint8))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_leaves_into_pool_frames(dtype):
     """Each payload decoded straight into a strided pool frame: the frame
@@ -119,12 +157,16 @@ def test_decode_leaves_into_pool_frames(dtype):
     ((9, 16, 32, 80), None, (16, 0)),        # zamba2 page leaf
     ((8192, 576), None, (0, 576)),           # one stashed activation
     ((1600, 63), 16 * 63, (1, 0)),           # row blocks of 16 x 63
+    ((8192, 1024), None, (0, 1024)),         # mamba2's stashed activation
+    ((8192, 2048), None, (0, 2048)),
+    ((16384, 576), 8192 * 576, (0, 576)),    # two stashes' row blocks
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_pack_plan_regimes(shape, block, want, dtype):
-    """The int8 pack's regime from a row block's size: every page leaf of
-    the main paths (bf16, and zamba2's in the f32 run) on one cluster,
-    8192 x 576 over two passes; a cluster's blocks hold the row block."""
+    """The pack's regime from a row block's size: every page leaf of the
+    main paths (bf16, and zamba2's in the f32 run) on one cluster, a
+    stashed activation (smollm's 8192 x 576, mamba2's 8192 x 1024) over
+    two passes; a regime's blocks hold the row block."""
     n = int(np.prod(shape)) if block is None else block
     size = torch.tensor([], dtype=dtype).element_size()
     cluster, slices = offload_pack.pack_plan(n, size)
@@ -175,12 +217,15 @@ SERVE_CASES = {
 
 @pytest.mark.parametrize("decode_kernel", [False, True])
 @pytest.mark.parametrize("case", sorted(SERVE_CASES))
-def test_page_cycle_matches_per_leaf_path(case, decode_kernel, monkeypatch):
-    """An int8 spill under pool pressure: pages evicted from the pool in
-    one batched pack each, fetched back (or adopted into the side pool and
-    inflated) in one batched unpack each.  The pool and side pool end byte
-    for byte as the per-leaf path leaves them, with the same streams and
-    the same stash / fetch bytes and page counters."""
+@pytest.mark.parametrize("codec", CODECS)
+def test_page_cycle_matches_per_leaf_path(codec, case, decode_kernel,
+                                          monkeypatch):
+    """A spill through ``codec`` under pool pressure: pages evicted from
+    the pool in one batched pack each, fetched back (or, int8 and
+    blocksparse payloads, adopted into the side pool and inflated) in one
+    batched unpack each.  The pool and side pool end byte for byte as the
+    per-leaf path leaves them, with the same streams and the same stash /
+    fetch bytes and page counters."""
     arch, kw, prompt = SERVE_CASES[case]
     model = Model(ARCHS[arch].reduced(dtype="float32"), device="cpu")
     params = model.init(0)
@@ -190,7 +235,7 @@ def test_page_cycle_matches_per_leaf_path(case, decode_kernel, monkeypatch):
 
     def run():
         eng = Engine(model, params, spill="host", decode_kernel=decode_kernel,
-                     quota=TenantQuota(codec="int8"),
+                     quota=TenantQuota(codec=codec),
                      scheduler=FairScheduler(quantum=3), **kw)
         for uid, p, n in reqs:
             eng.submit(Request(uid=uid, prompt=p, max_new_tokens=n))
@@ -225,28 +270,34 @@ def test_page_cycle_matches_per_leaf_path(case, decode_kernel, monkeypatch):
     assert calls["decode"] == dec["refetched"] + dec["inflated"]
     assert dec["refetched"] == (rep["pages"]["refetches"]
                                 - rep["decode_io"]["compressed_adopts"])
-    if decode_kernel:
-        assert dec["inflated"] == rep["decode_io"]["compressed_adopts"] > 0
+    adopts = decode_kernel and codec != "fp8"       # int8 payloads only
+    assert dec["inflated"] == rep["decode_io"]["compressed_adopts"]
+    assert (dec["inflated"] > 0) == adopts
     for a, b in zip(tree.leaves(cache.pool), tree.leaves(wcache.pool)):
         assert torch.equal(a, b)
-    if decode_kernel:
+    if adopts:
         for a, b in zip(tree.leaves(cache.cpool), tree.leaves(wcache.cpool)):
             assert torch.equal(a, b)
 
 
-def test_fp8_pages_keep_the_per_leaf_pack(monkeypatch):
-    """Only the int8 codec packs a page in one launch: an fp8 page packs
-    leaf by leaf from a clone of its frame, and still decodes in one
-    launch."""
+@pytest.mark.parametrize("codec", CODECS)
+def test_every_codec_packs_a_page_in_one_launch(codec, monkeypatch):
+    """Every codec packs an evicted page in one launch straight from its
+    frame (``encode_leaves`` once a page, never the per-leaf pack) and
+    decodes a refetched one in one launch."""
     model = Model(ARCHS["smollm-135m"].reduced(dtype="float32"),
                   device="cpu")
     params = model.init(0)
-    assert compress.get_codec("fp8").pack_leaves is None
     seen = []
+
+    def per_leaf(*a):
+        raise AssertionError("a page packed leaf by leaf")
+
     monkeypatch.setattr(cache_manager, "encode_leaves",
-                        lambda *a: seen.append(a))
+                        lambda *a: seen.append(a) or compress.encode_leaves(*a))
+    monkeypatch.setattr(cache_manager, "encode_tensor", per_leaf)
     eng = Engine(model, params, batch=2, max_len=32, page_size=4, pages=10,
-                 spill="host", quota=TenantQuota(codec="fp8"),
+                 spill="host", quota=TenantQuota(codec=codec),
                  scheduler=FairScheduler(quantum=3))
     rng = np.random.default_rng(5)
     for i in range(4):
@@ -254,20 +305,64 @@ def test_fp8_pages_keep_the_per_leaf_pack(monkeypatch):
                            .astype(np.int32), max_new_tokens=10))
     eng.run()
     rep = eng.traffic_report()
-    assert not seen and rep["pages"]["evictions"] > 0
+    assert rep["pages"]["evictions"] > 0
+    assert len(seen) == rep["pages"]["evictions"]
+    assert all(c.name == codec and len(xs) == 2 for c, xs in seen)
     assert rep["page_decodes"]["refetched"] == rep["pages"]["refetches"]
 
 
-def test_leaf_wrappers_take_the_plain_version_on_the_cpu():
+@pytest.mark.parametrize("codec", CODECS)
+def test_leaf_wrappers_take_the_plain_version_on_the_cpu(codec):
     xs = _leaves(torch.bfloat16)
-    got = offload_pack.int8_pack_leaves(xs)
-    for (q, s), (qr, sr) in zip(got, ref.int8_pack_leaves_ref(xs)):
-        assert torch.equal(q, qr) and torch.equal(s, sr)
-    before = offload_pack.int8_pack.launches, offload_pack.fp8_unpack.launches
+    pack = getattr(offload_pack, codec + "_pack")
+    got = getattr(offload_pack, codec + "_pack_leaves")(xs)
+    want = getattr(ref, codec + "_pack_leaves_ref")(xs)
+    for (q, s), (qr, sr) in zip(got, want):
+        assert q.dtype == (torch.float8_e4m3fn if codec == "fp8"
+                           else torch.int8)
+        assert torch.equal(q.view(torch.uint8), qr.view(torch.uint8))
+        assert torch.equal(s, sr)
+    before = pack.launches, offload_pack.fp8_unpack.launches
     outs = [torch.empty(x.shape) for x in xs]
     offload_pack.unpack_leaves([q for q, _ in got], [s for _, s in got],
                                outs)
-    assert (offload_pack.int8_pack.launches,
-            offload_pack.fp8_unpack.launches) == before
+    assert (pack.launches, offload_pack.fp8_unpack.launches) == before
     with pytest.raises(ValueError):
         offload_pack.unpack_leaves([got[0][0]], [], outs[:1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fp8_probe_tells_the_product_from_the_quotient(dtype):
+    """Every probe value's e4m3 code of x * (1/s rounded) differs from that
+    of the IEEE x / s, in the normal and the subnormal range, at scales
+    that are no power of two, on exact ties and (f32) off them; the port's
+    plain fp8 pack, and the reference's, give the quotient's codes (one
+    row block a row)."""
+    x = offload_pack.fp8_probe(dtype)
+    assert x.dtype == dtype and x.shape[1] % 64 == 0
+    q, s = ref.fp8_pack_ref(x, 1)
+    qj, sj = jref.fp8_pack_ref(_jax(x), 1)
+    np.testing.assert_array_equal(q.view(torch.uint8).numpy(),
+                                  np.asarray(qj).view(np.uint8))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(sj))
+    ranges, ties = set(), set()
+    mids = torch.tensor(offload_pack._FP8_MIDPOINTS)
+    for row, scale, codes in zip(x.float(), s, q.view(torch.uint8)):
+        assert row[0] == row.abs().max()
+        assert math.frexp(float(scale))[0] != 0.5        # no power of two
+        vals, codes = row[1:][row[1:] != 0], codes[1:][row[1:] != 0]
+        inv = ref.true_div(torch.ones(1), float(scale))
+        prod = (vals * inv).to(torch.float8_e4m3fn).view(torch.uint8)
+        quot = ref.true_div(vals, float(scale)).to(
+            torch.float8_e4m3fn).view(torch.uint8)
+        assert torch.equal(codes, quot) and bool((prod != quot).all())
+        ranges |= {(bool(v < 0), bool(abs(v) / scale >= 2.0 ** -6))
+                   for v in vals.tolist()}
+        quot = ref.true_div(vals, float(scale))
+        ties |= set((torch.isin(quot.abs(), mids)
+                     & (vals.double() == quot.double() * float(scale)))
+                    .tolist())
+    assert ranges == {(False, False), (False, True), (True, False),
+                      (True, True)}
+    # exact ties x = midpoint x s, and (f32) values just off them
+    assert ties == ({True, False} if dtype == torch.float32 else {True})

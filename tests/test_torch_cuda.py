@@ -192,17 +192,21 @@ def test_pack_unpack_bit_exact(dev, name, dtype, rows, block_rows):
         assert torch.equal(y, ref.fp8_unpack_ref(q, s, block_rows, out))
 
 
-def _int8_exact(q, s, x, block_rows):
-    """The int8 pack's (q, s) of x (R, C) == its plain version, bit for
-    bit, and the shared unpack of them == its plain version in f32 and
-    bf16."""
-    qr, sr = ref.int8_pack_ref(x, block_rows)
-    assert torch.equal(q, qr) and torch.equal(s, sr)
+def _pack_exact(q, s, x, block_rows, name="int8_pack"):
+    """A pack's (q, s) of x (R, C) == its plain version, bit for bit, and
+    the shared unpack of them == its plain version in f32 and bf16."""
+    qr, sr = getattr(ref, name + "_ref")(x, block_rows)
+    assert torch.equal(q.view(torch.uint8), qr.view(torch.uint8))
+    assert torch.equal(s, sr)
     for out in (torch.float32, torch.bfloat16):
         y = offload_pack.fp8_unpack(q, s, block_rows=block_rows, dtype=out)
         assert torch.equal(y, ref.fp8_unpack_ref(q, s, block_rows, out))
 
 
+PACKS = ["fp8_pack", "int8_pack", "blocksparse_pack"]
+
+
+@pytest.mark.parametrize("name", PACKS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rows,cols,block_rows", [
     (1440, 64, 1440),      # a smollm page leaf: one cluster
@@ -212,16 +216,44 @@ def _int8_exact(q, s, x, block_rows):
     (1600, 63, 16),        # 100 row blocks of 16 x 63
     (1440, 63, 9),         # row blocks of 567: chunks straddle two
     (1440, 64, 1),         # 1440 row blocks of one row
+    (8192, 1024, 8192),    # mamba2's stash: two passes
+    (8193, 577, 8193),     # numel % 16 != 0 in two passes
+    (16384, 576, 8192),    # two stash-sized row blocks: two passes
 ])
-def test_int8_pack_regimes_and_tails(dev, dtype, rows, cols, block_rows):
-    """The int8 pack in both regimes (a row block on one cluster, or two
-    passes) and on ragged layouts, one launch a call; the unpack across
-    row-block boundaries inside a 16-code chunk."""
+def test_pack_regimes_and_tails(dev, dtype, rows, cols, block_rows, name):
+    """Every pack in both regimes (a row block on one cluster, or two
+    passes) and on ragged layouts, one launch a call (two kernels for two
+    passes); the unpack across row-block boundaries inside a 16-code
+    chunk."""
+    kern = getattr(offload_pack, name)
     x = _codec_values(dev, dtype, rows, cols, rows + cols)
-    before = offload_pack.int8_pack.launches
-    q, s = offload_pack.int8_pack(x, block_rows=block_rows)
-    assert offload_pack.int8_pack.launches == before + 1
-    _int8_exact(q, s, x, block_rows)
+    before = kern.launches
+    q, s = kern(x, block_rows=block_rows)
+    assert kern.launches == before + 1
+    _pack_exact(q, s, x, block_rows, name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,cols", [(1440, 64), (8192, 576)])
+def test_fp8_reciprocal_probe_and_blocksparse_threshold(dev, dtype, rows,
+                                                        cols):
+    """The fp8 pack on its reciprocal probe (values whose code from x times
+    the rounded reciprocal of the scale is not that of x / scale), as one
+    row block a row and laid into a (rows, cols) row block; the
+    blocksparse pack keeps |x| == absmax / 32 and prunes what lies below."""
+    probe = offload_pack.fp8_probe(dtype).to(dev)
+    q, s = offload_pack.fp8_pack(probe, block_rows=1)
+    _pack_exact(q, s, probe, 1, "fp8_pack")
+    for row in probe:
+        x = torch.zeros((rows, cols), device=dev, dtype=dtype)
+        x.view(-1)[:row.numel()] = row
+        q, s = offload_pack.fp8_pack(x, block_rows=rows)
+        _pack_exact(q, s, x, rows, "fp8_pack")
+    x = torch.zeros((rows, cols), device=dev, dtype=dtype)
+    x[0, :4] = torch.tensor([448.0, 14.0, -14.0, 13.875])
+    q, s = offload_pack.blocksparse_pack(x, block_rows=rows)
+    _pack_exact(q, s, x, rows, "blocksparse_pack")
+    assert q[0, :4].tolist() == [127, 4, -4, 0]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -232,38 +264,41 @@ def test_int8_pack_zeros_and_ties(dev, dtype):
     3, -4)."""
     z = torch.zeros((1440, 64), device=dev, dtype=dtype)
     q, s = offload_pack.int8_pack(z, block_rows=1440)
-    _int8_exact(q, s, z, 1440)
+    _pack_exact(q, s, z, 1440)
     assert float(s) == float(np.float32(1e-30)) and not q.any()
-    for rows, cols in ((1440, 64), (8192, 576)):     # both regimes
+    for rows, cols in ((1440, 64), (8192, 576)):     # every regime
         x = torch.zeros((rows, cols), device=dev, dtype=dtype)
         x[0, :5] = torch.tensor([127.0, 0.5, -0.5, 2.5, -3.5])
         x[rows - 1, -4:] = torch.tensor([0.5, -0.5, 2.5, -3.5])
         q, s = offload_pack.int8_pack(x, block_rows=rows)
-        _int8_exact(q, s, x, rows)
+        _pack_exact(q, s, x, rows)
         assert float(s) == 1.0
         assert q[0, :5].tolist() == [127, 0, 0, 2, -4]
         assert q[rows - 1, -4:].tolist() == [0, 0, 2, -4]
 
 
+@pytest.mark.parametrize("name", PACKS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(30, 16, 3, 64), (9, 16, 32, 80)])
-def test_int8_page_leaves_one_launch(dev, dtype, shape):
+def test_page_leaves_one_launch(dev, dtype, shape, name):
     """A page's two leaves packed in one launch straight from the pool's
     frame (the leaves 10^4 apart in magnitude: each keeps its own scale),
     then decoded in one launch straight into another frame: bit for bit
     what the per-leaf plain versions give, and no other frame is
     written."""
     G, page, K, hd = shape
+    kern = getattr(offload_pack, name)
     g = torch.Generator(device="cpu").manual_seed(hd)
     pools = [torch.randn((G, 5, page, K, hd), generator=g).to(dev, dtype)
              * m for m in (1e-2, 1e2)]
     xs = [p[:, 3] for p in pools]
-    before = offload_pack.int8_pack.launches
-    got = offload_pack.int8_pack_leaves(xs)
-    assert offload_pack.int8_pack.launches == before + 1
-    want = ref.int8_pack_leaves_ref([x.clone() for x in xs])
+    before = kern.launches
+    got = getattr(offload_pack, name + "_leaves")(xs)
+    assert kern.launches == before + 1
+    want = getattr(ref, name + "_leaves_ref")([x.clone() for x in xs])
     for (q, s), (qr, sr) in zip(got, want):
-        assert torch.equal(q, qr) and torch.equal(s, sr)
+        assert torch.equal(q.view(torch.uint8), qr.view(torch.uint8))
+        assert torch.equal(s, sr)
     assert float(got[1][1]) > 1e3 * float(got[0][1])
     for out_dtype in (torch.float32, torch.bfloat16):
         frames = [torch.full((G, 4, page, K, hd), 7.0, device=dev,
@@ -281,14 +316,16 @@ def test_int8_page_leaves_one_launch(dev, dtype, shape):
             assert bool((f[:, [0, 1, 3]] == 7.0).all())
 
 
-def test_int8_leaves_reject_what_they_cannot_take(dev):
+@pytest.mark.parametrize("name", PACKS)
+def test_pack_leaves_reject_what_they_cannot_take(dev, name):
+    pack_leaves = getattr(offload_pack, name + "_leaves")
     x = torch.randn((8, 16, 64), device=dev)
     with pytest.raises(ValueError):          # not runs at one stride
-        offload_pack.int8_pack_leaves([x[:, 1:3, :8]])
+        pack_leaves([x[:, 1:3, :8]])
     with pytest.raises(TypeError):           # mixed dtypes in one launch
-        offload_pack.int8_pack_leaves([x, x.bfloat16()])
+        pack_leaves([x, x.bfloat16()])
     with pytest.raises(ValueError):          # more leaves than a launch holds
-        offload_pack.int8_pack_leaves([x] * (offload_pack.MAX_LEAVES + 1))
+        pack_leaves([x] * (offload_pack.MAX_LEAVES + 1))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
