@@ -22,6 +22,11 @@ SSD_SERVE="$SSD check_ssm_serve_logits()"
 SSD_TRAIN="$SSD check_train_ssd_vs_plain()"
 GEMM='check_gemm(torch.device(0),{},{}) check_gemm_path()'
 ZAMBA='check_zamba2_serve_logits()'
+# phase 9's comparison (full-width zamba2 training, flash and scan kernels
+# against their plain versions in float32 and bfloat16).  zamba2 has no
+# GQA (32 heads over 32 kv heads), so the *_kv_head_mod plants read the
+# same kv head there and are not run against it
+ZAMBA_TRAIN='check_train_zamba2_vs_plain()'
 SHOW='main path logits|reciprocal probe|paged_decode_attention (float|bfloat)|ssd_scan rounding probe|flash_attention_fwd (float|bfloat)|training, |bit-exact|  ssd_scan (float|bfloat)|(mamba2|zamba2) logits|    (scan kernel|paged decode|plain bf16)|gemm_os (float|bfloat)|gemm path|state of the slots|    limits: float32|FAILED'
 ONLY=" $* "
 
@@ -51,7 +56,7 @@ import chip_smoke as c; c.$check" 2>&1) |
 # the tensor cores, float32 on the CUDA cores)
 fault scale_of_frame0 $CSRC/paged_attention.cu \
   's/sk = a.ks\[ci\]; sv = a.vs\[ci\];/sk = a.ks[0]; sv = a.vs[0];/; s/const float sk = a.ks\[ci\], sv = a.vs\[ci\];/const float sk = a.ks[0], sv = a.vs[0];/' \
-  "$MAIN"
+  "$MAIN $ZAMBA"
 # K and V side-pool scales swapped (both paths)
 fault kv_scales_swapped $CSRC/paged_attention.cu \
   's/sk = a.ks\[ci\]; sv = a.vs\[ci\];/sk = a.vs[ci]; sv = a.ks[ci];/; s/const float sk = a.ks\[ci\], sv = a.vs\[ci\];/const float sk = a.vs[ci], sv = a.ks[ci];/' \
@@ -84,7 +89,7 @@ fault flash_kv_head_mod $CSRC/flash_attention.cu \
 # masked out)
 fault flash_causal_shift $CSRC/flash_attention.cu \
   's/ok = ok \&\& q_pos >= k_pos;/ok = ok \&\& q_pos > k_pos;/' \
-  "$FLASH"
+  "$FLASH $ZAMBA_TRAIN"
 # flash (bfloat16, tensor cores): query head h reads kv head h % K
 fault flash_mma_kv_head_mod $CSRC/flash_attention.cu \
   's|const int kvh = h / (a.H / a.K);|const int kvh = h % a.K;|' \
@@ -92,7 +97,7 @@ fault flash_mma_kv_head_mod $CSRC/flash_attention.cu \
 # flash (bfloat16): the causal mask shifted by one
 fault flash_mma_causal_shift $CSRC/flash_attention.cu \
   's/vis = vis \&\& qp >= kp;/vis = vis \&\& qp > kp;/' \
-  "$FLASH"
+  "$FLASH $ZAMBA_TRAIN"
 # flash (bfloat16): p left unrounded before the PV product -- its low 16
 # bits cut off as it is packed, where the reference rounds it to bf16
 fault flash_mma_p_unrounded $CSRC/flash_attention.cu \
@@ -170,7 +175,7 @@ fault ssd_mask_after_exp $CSRC/ssd_scan.cu \
 # decay
 fault ssd_no_chunk_decay $CSRC/ssd_scan.cu \
   's/for (int e = 0; e < 4; ++e) st\[u\]\[j\]\[e\] \*= decay;/for (int e = 0; e < 4; ++e) st[u][j][e] *= 1.f;/' \
-  "$SSD"
+  "$SSD $ZAMBA $ZAMBA_TRAIN"
 # SSD scan (bfloat16): head h reads B / C of group h % G instead of
 # h / (H / G)
 fault ssd_group_mod $CSRC/ssd_scan.cu \

@@ -10,8 +10,10 @@ Phases (each failure exits non-zero; nothing is caught and carried on):
 3. kernels  — holds each kernel against its plain PyTorch version on the
               card at the main paths' shapes (zamba2-2.7b's too: the paged
               decode at head_dim 80 without GQA, the scan at 80 heads of
-              state 64, the int8 codec on 80-column page rows, the flash
-              forward at head_dim 80) and times kernel, plain version, the
+              state 64 in a prefill and at 8 x 1024 tokens in training,
+              the int8 codec on 80-column page rows, the fp8 codec on an
+              8192 x 2560 stash, the flash forward at head_dim 80) and
+              times kernel, plain version, the
               least time the card could take (bound) and, for the paged
               decode, the flash forward and the GEMM, one PyTorch library
               call as a yardstick.  The flash forward, the GEMM, the scan
@@ -84,20 +86,36 @@ Phases (each failure exits non-zero; nothing is caught and carried on):
               pinned host memory and in-place kernel decode, each slot's
               Mamba2 conv / ssm state beside the pool, parked whole under
               fair preemption; prompts of 128, 256 and 384 tokens.  The
-              path runs four times — paged decode and scan plain, then on
-              their kernels, in bfloat16 and with the weights in float32,
-              every run after the first on the first's tokens — and every
-              sampling call's logits must agree; then once more, counted:
-              every
+              path runs four times on 8 of the 16 requests — paged decode
+              and scan plain, then on their kernels, in bfloat16 and with
+              the weights in float32, every run after the first on the
+              first's tokens; each still evicts pages, resumes some
+              compressed and parks slots — and every sampling call's
+              logits must agree; then once more on all 16, counted: every
               request finished, the scan launched once per
               Mamba2 block per admission, the paged decode once per site
               per decode call, the codec once a page, stash and fetch
               bytes equal, the parked state 37 MB a park.
+9. train    — trains full-width zamba2-2.7b (bf16, random weights from a
+   zamba2     seed) for 5 steps of 8 x 1024 tokens through
+              ``repro_torch.launch.train``: all 63 sub-layers (54 Mamba2
+              blocks, the shared block at its 9 sites, every site on the
+              same weights) stash their input through the fp8 codec to
+              pinned host memory and recompute in backward, the scan at
+              80 heads and the flash forward at head_dim 80 on the
+              training path.  Finite losses, the tier's bytes, the
+              launches a step (fp8 pack and unpack 63, the scan 108, the
+              flash forward 18); profiles two more steps; then 3 steps
+              four times from the same weights and batches, the flash and
+              scan kernels against their plain versions together, with
+              the weights in float32 and in bfloat16, every loss and every
+              step-1 gradient leaf compared.
 
 The line before the last is a JSON object with one entry per kernel (its
-launches summed over the counted runs of phases 3 to 8, and per run); the
+launches summed over the counted runs of phases 3 to 9, and per run); the
 last line is ``{"ok": true, "device": {...}}``.
 """
+import gc
 import json
 import math
 import os
@@ -239,14 +257,45 @@ ZAMBA_STATE_BYTES = ZAMBA_LAYERS * (80 * 64 * 64 + 3 * 5248) * 2
 # distance bfloat16 itself puts between the plain version's run and its
 # float32 run: bfloat16 to all of it (as phase 6), float32 to 1/50 of it.
 # Mamba2's absolute float32 limits (1e-2 max, 1e-3 worst-call mean), the
-# first ones set here, read 0.0101 / 0.00188 on an H100 (700 W) with the
-# argmax equal on 1024 of 1024 rows: the random 63-layer stack amplifies
+# first ones set here, read 0.0101 / 0.00188 on an H100 (700 W) over all
+# 16 requests with the argmax equal on 1024 of 1024 rows: the random 63-layer stack amplifies
 # rounding further than mamba2's (bf16 vs f32 4.08 / 0.675 against 2.80 /
 # 0.417), so the limit follows that amplification (0.082 / 0.0135 there).
-# Planted kernel faults read far beyond it in float32: side-pool frames
-# dequantised with frame 0's scales 4.11 / 0.671, the scan's state carried
-# without its chunk decay 5.26 / 0.996
+# The four comparison runs take the first 8 of the 16 requests (the three
+# prompt lengths, more sessions than slots: 713 pages evicted, 697
+# adopted compressed, 22 slots parked) and read, at this full depth, 0.0078
+# / 0.00145 in float32 against a bf16 vs f32 distance of 3.48 / 0.592
+# (limit 0.070 / 0.0118).  Planted kernel faults read far beyond it:
+# side-pool frames dequantised with frame 0's scales 3.71 / 0.689
+# (float32); the scan's state carried without its chunk decay (a bf16
+# kernel fault) 5.35 / 1.0 in bfloat16 against 3.48 / 0.592.  The counted
+# run serves all 16
 ZAMBA_LOGIT_F32_SHARE = 0.02
+ZAMBA_CMP_ARGS = ZAMBA_ARGS + ["--requests", "8"]
+
+# zamba2 training main path: 63 sub-layers (54 Mamba2 blocks and the
+# shared block at 9 sites), 8 x 1024 tokens, host tier with the fp8 stash
+# codec; 5 steps
+ZAMBA_SUBLAYERS = ZAMBA_LAYERS + ZAMBA_SITES
+ZAMBA_TRAIN_STEPS = 5
+ZAMBA_TRAIN_ARGS = ["--arch", "zamba2-2.7b", "--device", "cuda", "--seed",
+                    "0", "--batch", str(TRAIN_BATCH), "--seq",
+                    str(TRAIN_SEQ), "--steps", str(ZAMBA_TRAIN_STEPS),
+                    "--lr", "3e-4", "--policy", "host", "--compress", "fp8",
+                    "--log-every", "1"]
+# 3 training steps, flash and scan kernels together against their plain
+# versions from the same weights and batches, as phase 7: float32 limits
+# on every loss and on every step-1 gradient leaf's |d| / |g| (2-norm),
+# phase 7's; on an H100 (700 W) they read 0.0020 (losses after step 1,
+# which reads 5.7e-6) and 0.035 (a Mamba2 block's `A_log`).  bfloat16 is
+# held to the distance between the plain version's bfloat16 and float32
+# runs (1.29 over all leaves, 0.0011 on step 1's loss; the kernels read
+# 1.02 and 7.3e-4).  Planted faults: the float32 causal mask shifted by
+# one reads 0.0072 on the losses and 0.77 on `shared/attn/wq`; in
+# bfloat16 the shifted mask reads 0.0021 and the scan's state carried
+# without its chunk decay 0.0056 on step 1's loss (all leaves 1.04 and
+# 1.05: at this depth bfloat16 rounding hides them in the gradients)
+ZAMBA_TRAIN_F32_TOL = {"loss": 5e-3, "leaf_norm": 5e-2}
 
 
 def fail(msg: str) -> None:
@@ -1175,13 +1224,15 @@ def check_gemm_path():
 
 
 def check_zamba2_kernels(dev, others):
-    """The serving kernels at zamba2-2.7b's shapes, new to them: the paged
+    """The kernels at zamba2-2.7b's shapes, new to them: the paged
     decode at B 6, H = K = 32 (no GQA), head_dim 80, 448 rows visible,
     with int8 side-pool frames (f32 2e-5, bf16 two bf16 ulps of |out|, as
     ``check_paged``); the scan at (1, 384, 80 heads, P 64), N 64, with and
-    without an initial state (``SSD_RTOL``); the int8 pack and the unpack
-    of one spilled page leaf, 9 sites x 16 rows x 32 heads = 4608 rows of
-    80, bit-exact.  Each timed in bfloat16."""
+    without an initial state, and at the training path's (8, 1024, 80
+    heads, P 64), N 64 (``SSD_RTOL``); the int8 pack and the unpack of one
+    spilled page leaf, 9 sites x 16 rows x 32 heads = 4608 rows of 80,
+    bit-exact; the fp8 pack and the unpack of one stashed sub-layer input,
+    8192 x 2560 as one row block, bit-exact.  Each timed in bfloat16."""
     from repro_torch.kernels import offload_pack as kp
     from repro_torch.kernels import ref
     from repro_torch.kernels.paged_attention import paged_decode_attention
@@ -1205,8 +1256,9 @@ def check_zamba2_kernels(dev, others):
               f"{str(dtype)[6:]}: at most {share:.2f} of the limit",
               flush=True)
         worst = 0.0
-        for init in (False, True):
-            x, dt, A, B, C, s0 = ssd_case(dev, dtype, 1, 384, 80, 1, 60,
+        for b, S, init in ((1, 384, False), (1, 384, True),
+                           (8, 1024, False)):
+            x, dt, A, B, C, s0 = ssd_case(dev, dtype, b, S, 80, 1, 60,
                                           P=64, N=64, init=init)
             y, fin = ssd_scan(x, dt, A, B, C, 128, init_state=s0)
             torch.cuda.synchronize()
@@ -1217,9 +1269,9 @@ def check_zamba2_kernels(dev, others):
                     fail("ssd_scan at zamba2's shape not finite")
                 worst = max(worst, (got.float() - want.float()).abs().max()
                             .item() / want.float().abs().max().item())
-        print(f"  ssd_scan at 80 heads, N 64, {str(dtype)[6:]}: max |d| / "
-              f"max |want| {worst:.3g} (limit {SSD_RTOL[dtype]})",
-              flush=True)
+        print(f"  ssd_scan at 80 heads, N 64 (1 x 384, 8 x 1024), "
+              f"{str(dtype)[6:]}: max |d| / max |want| {worst:.3g} (limit "
+              f"{SSD_RTOL[dtype]})", flush=True)
         if worst > SSD_RTOL[dtype]:
             fail(f"ssd_scan at zamba2's shape {dtype}: off by {worst:.3g}")
         leaf = (torch.randn((9 * 16 * 32, 80), device=dev) * 3).to(dtype)
@@ -1279,6 +1331,44 @@ def check_zamba2_kernels(dev, others):
             replaces=site, max_abs_err=0.0, ms=device_ms(fn),
             plain_ms=device_ms(plain), bound_ms=b_ms, bound_by=b_by,
             library_ms=None, eager_ms=eager_ms(fn))
+
+    # the training path: the scan at 8 x 1024 tokens of 80 heads
+    x, dt, A, B, C, _ = ssd_case(dev, torch.bfloat16, 8, 1024, 80, 1, 62,
+                                 P=64, N=64)
+    nbytes, ops = ssd_bytes_ops(x, dt, B, None, 128)
+    b_ms, b_by = bound_ms(nbytes, ops, PEAK_BF16_FLOPS)
+    others["ssd_scan@zamba2_train"] = dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+        replaces="src/repro/kernels/ssd_scan.py:85", max_abs_err=None,
+        ms=device_ms(lambda: ssd_scan(x, dt, A, B, C, 128), iters=20),
+        plain_ms=device_ms(lambda: ref.ssd_chunked_ref(x, dt, A, B, C, 128),
+                           iters=3),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        eager_ms=eager_ms(lambda: ssd_scan(x, dt, A, B, C, 128), iters=20))
+    del x, dt, A, B, C
+    # ... and one stashed sub-layer input through the fp8 codec
+    g = torch.Generator(device=dev).manual_seed(9)
+    stash = (torch.randn((8 * 1024, 2560), generator=g, device=dev)
+             * 3).bfloat16()
+    n, R = stash.numel(), stash.shape[0]
+    q, sc = kp.fp8_pack(stash, block_rows=R)
+    qr, sr = ref.fp8_pack_ref(stash, R)
+    if not (torch.equal(q.view(torch.uint8), qr.view(torch.uint8))
+            and torch.equal(sc, sr) and torch.equal(
+                kp.fp8_unpack(q, sc, block_rows=R, dtype=torch.bfloat16),
+                ref.fp8_unpack_ref(q, sc, R, torch.bfloat16))):
+        fail("fp8 pack / unpack of a zamba2 stash (8192 x 2560) not "
+             "bit-exact")
+    print("  fp8_pack and unpack of a zamba2 stash (8192 x 2560, bf16): "
+          "bit-exact", flush=True)
+    others["fp8_pack@zamba2_stash"] = codec_row(
+        lambda: kp.fp8_pack(stash, block_rows=R),
+        lambda: ref.fp8_pack_ref(stash, R), n * 2 + n + 4, n,
+        PACK_SITES["fp8_pack"])
+    others["fp8_unpack@zamba2_stash"] = codec_row(
+        lambda: kp.fp8_unpack(q, sc, block_rows=R),
+        lambda: ref.fp8_unpack_ref(q, sc, R, torch.bfloat16),
+        n + 4 + 2 * n, n, UNPACK_SITE)
 
 
 # ---------------------------------------------------------------------------
@@ -1530,19 +1620,32 @@ def profile_train_steps(out, start: int, n: int = 2):
               flush=True)
 
 
-def train_steps_with(argv, kind: str, impl: str, n: int = 3, dtype=None):
+def free_device_memory() -> None:
+    """Drop what the last run left (its model, state, cycles) and hand
+    the caching allocator's free blocks back, so the next full-width run
+    starts on an empty card."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def train_steps_with(argv, kinds, impl: str, n: int = 3, dtype=None):
     """``n`` full-width training steps of the run ``argv`` describes (its
     weights in ``dtype`` if given), from its weights and batches, with the
-    ``kind`` kernel ("flash" or "ssd") on ``impl``; returns the losses and
-    the first step's gradients."""
+    kernels of ``kinds`` ("flash", "ssd") on ``impl``; returns the losses
+    and the first step's gradients, moved to host memory (a full-width
+    zamba2 float32 run holds 38 GB on the card; its kept gradients would
+    add 10 GB a run)."""
+    from repro_torch import tree
     from repro_torch.data.pipeline import to_device
     from repro_torch.kernels import ops
     from repro_torch.launch import train as train_cli
     from repro_torch.train.loop import grads_of
     from repro_torch.train.optimizer import apply_adamw
     from repro_torch.train.train_state import init_state
-    select = getattr(ops, f"set_{kind}_impl")
-    select(impl)
+    setters = [getattr(ops, f"set_{kind}_impl") for kind in kinds]
+    for select in setters:
+        select(impl)
     try:
         model, tc, source = train_cli.build_run(train_cli.parse_args(argv),
                                                 dtype=dtype)
@@ -1552,13 +1655,16 @@ def train_steps_with(argv, kind: str, impl: str, n: int = 3, dtype=None):
             batch = to_device(source.batch_at(t), model.device)
             g, _, m = grads_of(model, tc, state["params"], batch)
             if t == 0:
-                first = g
+                first = tree.map(lambda x: x.detach().cpu(), g)
             _, state["opt"], _ = apply_adamw(state["params"], g, state["opt"],
                                              tc)
             losses.append(float(m["loss"]))
+            del g, batch
+        del model, state
     finally:
-        select("cuda")
-    torch.cuda.synchronize()
+        for select in setters:
+            select("cuda")
+    free_device_memory()
     return losses, first
 
 
@@ -1576,10 +1682,12 @@ def train_gap(got, want, label):
     where = {}
     d2 = g2 = 0.0
     leaves_w, paths = tree.flatten(want_g)
+    dev = torch.device("cuda")
     for w, g, path in zip(leaves_w, tree.leaves(got_g), paths):
-        if not torch.isfinite(g.float()).all():
+        w, g = w.to(dev).float(), g.to(dev).float()
+        if not torch.isfinite(g).all():
             fail(f"gradient {'/'.join(path)} not finite")
-        w, d = w.float(), (g.float() - w.float())
+        d = g - w
         dn, wn = d.norm().item(), w.norm().item()
         d2, g2 = d2 + dn ** 2, g2 + wn ** 2
         for key, val in (("leaf", d.abs().max().item()
@@ -1602,8 +1710,8 @@ def check_train_kernel_vs_plain(argv, kind, label, loss_tol, grad_tol):
     """The training path with the ``kind`` kernel on its plain version,
     then on the kernel, from the same weights and batches: each step's
     loss and every gradient leaf of step 1."""
-    gap = train_gap(train_steps_with(argv, kind, "cuda"),
-                    train_steps_with(argv, kind, "torch"),
+    gap = train_gap(train_steps_with(argv, (kind,), "cuda"),
+                    train_steps_with(argv, (kind,), "torch"),
                     f"{label} kernel vs plain")
     print(f"    limits: {loss_tol} on the losses, {grad_tol} on the worst "
           "leaf's max |d| / max |g|", flush=True)
@@ -1617,30 +1725,45 @@ def check_train_flash_vs_plain() -> None:
                                 TRAIN_LOSS_ATOL, TRAIN_GRAD_RTOL)
 
 
-def check_train_ssd_vs_plain() -> None:
-    """Phase 7's comparison: 3 mamba2 steps from the same weights and
-    batches, scan kernel against plain version, with the weights in
-    float32 (limits ``SSM_TRAIN_F32_TOL``) and in bfloat16 (held to the
-    distance between the plain version's bfloat16 and float32 runs)."""
-    runs = {(dtype, impl): train_steps_with(SSM_TRAIN_ARGS, "ssd", impl,
-                                            dtype=dtype)
-            for dtype in ("float32", "bfloat16") for impl in ("torch", "cuda")}
-    f32 = train_gap(runs["float32", "cuda"], runs["float32", "torch"],
-                    "SSD scan kernel vs plain, float32")
-    bf16 = train_gap(runs["bfloat16", "cuda"], runs["bfloat16", "torch"],
-                     "SSD scan kernel vs plain, bfloat16")
-    rounding = train_gap(runs["bfloat16", "torch"], runs["float32", "torch"],
-                         "plain bf16 vs plain f32")
-    print(f"    limits: float32 {SSM_TRAIN_F32_TOL}; bfloat16 step-1 loss "
+def check_train_kernels_f32_bf16(argv, kinds, what, f32_tol) -> None:
+    """3 steps from the same weights and batches, the kernels of ``kinds``
+    against their plain versions, with the weights in float32 (limits
+    ``f32_tol``) and in bfloat16 (held to the distance between the plain
+    version's bfloat16 and float32 runs: step 1's loss and all gradient
+    leaves at once).  Each pair is compared as soon as both runs exist, so
+    no more than two runs' gradients are kept (in host memory)."""
+    f32_plain = train_steps_with(argv, kinds, "torch", dtype="float32")
+    f32 = train_gap(train_steps_with(argv, kinds, "cuda", dtype="float32"),
+                    f32_plain, f"{what} vs plain, float32")
+    bf16_plain = train_steps_with(argv, kinds, "torch", dtype="bfloat16")
+    rounding = train_gap(bf16_plain, f32_plain, "plain bf16 vs plain f32")
+    del f32_plain
+    bf16 = train_gap(train_steps_with(argv, kinds, "cuda", dtype="bfloat16"),
+                     bf16_plain, f"{what} vs plain, bfloat16")
+    print(f"    limits: float32 {f32_tol}; bfloat16 step-1 loss "
           f"<= {rounding['loss1']:.3g} and all leaves <= "
           f"{rounding['norm']:.3g} (plain bf16 vs plain f32)", flush=True)
-    if any(f32[k] > tol for k, tol in SSM_TRAIN_F32_TOL.items()):
-        fail("training with the SSD scan kernel (float32) disagrees with "
-             "the plain version")
-    if bf16["loss1"] > rounding["loss1"] or bf16["norm"] > rounding["norm"]:
-        fail("training with the SSD scan kernel (bfloat16): the kernel "
-             "moves it further than bfloat16 rounding moves the plain "
+    if any(f32[k] > tol for k, tol in f32_tol.items()):
+        fail(f"training with the {what} (float32) disagrees with the plain "
              "version")
+    if bf16["loss1"] > rounding["loss1"] or bf16["norm"] > rounding["norm"]:
+        fail(f"training with the {what} (bfloat16): the kernels move it "
+             "further than bfloat16 rounding moves the plain version")
+
+
+def check_train_ssd_vs_plain() -> None:
+    """Phase 7's comparison: 3 mamba2 steps, scan kernel against plain
+    version (``SSM_TRAIN_F32_TOL``)."""
+    check_train_kernels_f32_bf16(SSM_TRAIN_ARGS, ("ssd",), "SSD scan kernel",
+                                 SSM_TRAIN_F32_TOL)
+
+
+def check_train_zamba2_vs_plain() -> None:
+    """Phase 9's comparison: 3 full-width zamba2 steps, the flash forward
+    and the scan on their kernels against both on their plain versions
+    (``ZAMBA_TRAIN_F32_TOL``)."""
+    check_train_kernels_f32_bf16(ZAMBA_TRAIN_ARGS, ("flash", "ssd"),
+                                 "flash + scan kernels", ZAMBA_TRAIN_F32_TOL)
 
 
 def check_blocksparse_path():
@@ -1672,7 +1795,9 @@ def serve_logits(argv, kinds, impl: str, dtype: str, forced=None):
     (another run's tokens, per call) the engine emits those.  Every
     decode call is also checked to leave the recurrent (conv / ssm) state
     of the slots outside its length group bit for bit as it was
-    (``stats["state_moved"]`` counts the calls that did not)."""
+    (``stats["state_moved"]`` counts the calls that did not); ``stats``
+    also counts the pages evicted, the pages adopted compressed and the
+    slots parked."""
     import numpy as np
     from repro_torch import tree
     from repro_torch.kernels import ops
@@ -1719,6 +1844,11 @@ def serve_logits(argv, kinds, impl: str, dtype: str, forced=None):
         eng._decode, eng._sample, eng.step = spy_decode, spy_sample, spy_step
         serve.submit_requests(eng, args, {})
         eng.run()
+        report = eng.traffic_report()
+        stats["evictions"] = report.get("pages", {}).get("evictions", 0)
+        stats["compressed"] = report.get("decode_io", {}).get(
+            "compressed_adopts", 0)
+        stats["parks"] = report.get("slots", {}).get("parks", 0)
     finally:
         for select in setters:
             select("cuda")
@@ -1742,21 +1872,27 @@ def logit_gap(got, want, label):
 
 
 def check_serve_kernels_vs_plain(label, argv, kinds, what, f32_tol=None,
-                                 f32_share=None):
+                                 f32_share=None, must=()):
     """A serving path with the kernels of ``kinds`` against the same path
     with their plain versions, every sampling call, in bfloat16 (the main
     path) and with the weights in float32; every run after the first is
     forced onto the first's tokens.  float32 is held to ``f32_tol`` (max,
     worst call's mean) or to ``f32_share`` of the distance bfloat16
     rounding puts between the plain version's two runs, bfloat16 to all of
-    that distance."""
+    that distance.  Each ``stats`` count named in ``must`` ("evictions",
+    "compressed", "parks") must be above 0 in the first run."""
     base, stats = serve_logits(argv, kinds, "torch", "bfloat16")
     print(f"  {label}: the conv / ssm state of the slots outside each "
           f"decode call's length group moved in {stats['state_moved']} of "
-          f"{stats['decodes']} calls", flush=True)
+          f"{stats['decodes']} calls; {stats['evictions']} pages evicted, "
+          f"{stats['compressed']} adopted compressed, {stats['parks']} "
+          "slots parked", flush=True)
     if stats["state_moved"]:
         fail(f"{label}: a decode call changed the recurrent state of slots "
              "it does not decode")
+    if any(stats[k] <= 0 for k in must):
+        fail(f"{label}: the comparison runs must count {must} above 0: "
+             f"{stats}")
     forced = [t for _, t in base]
     runs = {("bfloat16", "torch"): base}
     for key in (("bfloat16", "cuda"), ("float32", "torch"),
@@ -1809,10 +1945,11 @@ def check_zamba2_serve_logits() -> None:
     """Phase 8: zamba2 serving, the paged decode and the scan on their
     kernels against both on their plain versions (the int8 codec runs its
     kernels in every run)."""
-    check_serve_kernels_vs_plain("zamba2", ZAMBA_ARGS,
+    check_serve_kernels_vs_plain("zamba2", ZAMBA_CMP_ARGS,
                                  ("paged", "ssd"),
                                  "paged decode + scan kernels",
-                                 f32_share=ZAMBA_LOGIT_F32_SHARE)
+                                 f32_share=ZAMBA_LOGIT_F32_SHARE,
+                                 must=("evictions", "compressed", "parks"))
 
 
 def check_ssm_serve_main_path():
@@ -1890,6 +2027,25 @@ def check_zamba2_serve_main_path():
     if slots["park_bytes"] != slots["parks"] * ZAMBA_STATE_BYTES:
         fail(f"parked {slots['park_bytes']} B in {slots['parks']} parks; "
              f"want {ZAMBA_STATE_BYTES} B each")
+    return launches
+
+
+def check_train_zamba2():
+    """Phase 9: the counted zamba2 training run (every one of the 63
+    sub-layers stashed through fp8 and recomputed: the fp8 pack and the
+    unpack 63 times a step, the scan 108 (54 blocks, forward and
+    recompute), the flash forward 18 (9 sites)), two profiled steps, then
+    the kernels against their plain versions."""
+    out, launches = check_train_path(
+        "zamba2 training", ZAMBA_TRAIN_ARGS, ZAMBA_SUBLAYERS,
+        ZAMBA_TRAIN_STEPS,
+        {"fp8_pack": ZAMBA_SUBLAYERS, "fp8_unpack": ZAMBA_SUBLAYERS,
+         "ssd_scan": 2 * ZAMBA_LAYERS,
+         "flash_attention_fwd": 2 * ZAMBA_SITES}, require_fall=False)
+    profile_train_steps(out, ZAMBA_TRAIN_STEPS)
+    del out
+    free_device_memory()
+    check_train_zamba2_vs_plain()
     return launches
 
 
@@ -1987,8 +2143,17 @@ def main() -> None:
 
     phase("phase 8: serving main path (full-width zamba2-2.7b, bf16, "
           "paged shared-block KV beside slot-shaped SSM state, int8 spill)")
+    t0 = time.perf_counter()
     check_zamba2_serve_logits()
     by_path["serve_zamba2"] = check_zamba2_serve_main_path()
+    print(f"  phase 8: {time.perf_counter() - t0:.1f} s wall", flush=True)
+    free_device_memory()
+
+    phase(f"phase 9: training main path (full-width zamba2-2.7b, bf16, "
+          f"batch {TRAIN_BATCH} x {TRAIN_SEQ}, host tier, fp8 stash)")
+    t0 = time.perf_counter()
+    by_path["train_zamba2"] = check_train_zamba2()
+    print(f"  phase 9: {time.perf_counter() - t0:.1f} s wall", flush=True)
     phase("done")
 
     rows = []

@@ -90,13 +90,13 @@ def main(argv=None) -> Dict[str, Any]:
                         format="%(asctime)s %(name)s %(message)s")
     model, tc, source = build_run(args)
     cfg = model.cfg
-    _, n_groups = arch_group(cfg)
+    group, n_groups = arch_group(cfg)
     stashed = n_groups if model.runtime.offloads else 0
     print(f"model: {cfg.name} {cfg.num_layers}L d_model={cfg.d_model} "
           f"{cfg.dtype} on {model.device}; tier "
           f"{model.runtime.tier.describe()}, {stashed} of {n_groups} "
-          f"layer groups stashed; batch {source.batch} x {source.seq}",
-          flush=True)
+          f"layer groups stashed ({stashed * len(group)} sub-layers); "
+          f"batch {source.batch} x {source.seq}", flush=True)
     history: List[Dict[str, float]] = []
     data = Prefetcher(source, model.device)
     try:

@@ -11,8 +11,8 @@ unstacked in ``shared`` and applies it at every site; its caches stack
 that block's k/v over the sites as any group's.  A Python loop over the
 stacked layer axis replaces the reference's ``lax.scan``.  Ported so far:
 the dense family (smollm, h2o-danube, command-r, starcoder2), the pure
-SSM family (mamba2) and the hybrid's serving path (zamba2); hybrid
-training, MoE and the encoder-decoder branches come with later slices.
+SSM family (mamba2) and the hybrid (zamba2); MoE and the
+encoder-decoder branches come with later slices.
 """
 from __future__ import annotations
 
@@ -179,19 +179,16 @@ def forward_train(params: Params, ctx: ModelContext, tokens: torch.Tensor,
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (hidden (B, S, D), aux_loss).
 
-    Every layer group runs wrapped by the memory runtime (``ctx.wrap``:
+    Every sub-layer runs wrapped by the memory runtime (``ctx.wrap``:
     input stashed to the tier, layer recomputed in backward; the bare
-    layer when the tier does not offload).  The reference's split into a
-    stashed and an unstashed scan serves the ``auto`` planner, which ports
-    with slice 5."""
+    layer when the tier does not offload), the hybrid's shared block at
+    each of its sites too: every site takes the one unstacked
+    ``params["shared"]``, so autograd sums the sites' gradients of those
+    leaves, as ``jax.grad`` sums over the reference's closed-over
+    ``params["shared"]``.  The reference's split into a stashed and an
+    unstashed scan serves the ``auto`` planner, which ports with slice 5."""
     _require_ported(ctx.cfg)
     cfg = ctx.cfg
-    if cfg.is_hybrid:
-        raise NotImplementedError(
-            f"{cfg.name}: hybrid training is not ported yet (the rest of "
-            "slice 3b): forward_train over the shared attention block is "
-            "missing; the flash forward already takes head_dim "
-            f"{cfg.resolved_head_dim} (ROADMAP A1)")
     group, n_groups = arch_group(cfg)
     x = embed_tokens(params, ctx, tokens)
 
@@ -201,15 +198,19 @@ def forward_train(params: Params, ctx: ModelContext, tokens: torch.Tensor,
     wrapped = {k: ctx.wrap(f"{k}_layer", bare(k)) for k in set(group)}
     # one unbind per stacked leaf: backward stacks the per-layer gradients
     # once, instead of a full-size zero tensor per layer and leaf
-    stacks = []
-    for j in range(len(group)):
-        leaves, paths = tree.flatten(params["groups"][f"sub_{j}"])
-        stacks.append((paths, [t.unbind(0) for t in leaves]))
+    stacks = {}
+    for j, kind in enumerate(group):
+        if kind != "shared":
+            leaves, paths = tree.flatten(params["groups"][f"sub_{j}"])
+            stacks[j] = (paths, [t.unbind(0) for t in leaves])
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer in range(n_groups):
         for j, kind in enumerate(group):
-            paths, unbound = stacks[j]
-            p = tree.unflatten(paths, [u[layer] for u in unbound])
+            if kind == "shared":
+                p = params["shared"]
+            else:
+                paths, unbound = stacks[j]
+                p = tree.unflatten(paths, [u[layer] for u in unbound])
             x, a = wrapped[kind](p, x, positions)
             aux = aux + a
     return apply_norm(cfg, params["final_norm"], x), aux

@@ -1,5 +1,5 @@
-"""The hybrid (zamba2) serving slice of the port against the JAX reference,
-on the CPU.
+"""The hybrid (zamba2) slice of the port — serving and training — against
+the JAX reference, on the CPU.
 
 Weights come from the reference's initialisers on ``zamba2_2_7b.reduced(
 dtype="float32")`` — 2 Mamba2 blocks and one site of the shared attention
@@ -9,7 +9,9 @@ shared block, so one set of weights serves two cache rows), head_dim 80
 (RoPE over halves of 40) and no GQA (4 kv heads), as zamba2-2.7b's 32
 heads of 80.  They are carried over with
 ``repro_torch.convert.params_from_jax``.  Greedy token streams must be
-bit-identical; logits and caches agree to float32 rounding.
+bit-identical; logits and caches agree to float32 rounding; a training
+step's loss and every gradient leaf, the shared block's summed over its
+sites, agree to float32 rounding.
 
 The reference's paged path with ``decode_kernel=True`` cannot run a
 hybrid model (ROADMAP C5): there the port's in-place kernel path is held
@@ -41,14 +43,20 @@ from repro.serve.quota import TenantQuota as JQuota
 from repro.serve.scheduler import FairScheduler as JFair
 from repro_torch import tree
 from repro_torch.configs import ARCHS as TARCHS
+from repro_torch.configs import MemoryPlan, RunConfig, TrainConfig
+from repro_torch.configs.base import MeshPlan, ShapeConfig
 from repro_torch.convert import params_from_jax
+from repro_torch.core.runtime import MemoryRuntime
+from repro_torch.data.pipeline import SyntheticLM, to_device
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.paged_attention import paged_decode_attention
 from repro_torch.models import transformer as ttfm
-from repro_torch.models.model import Model
+from repro_torch.models.model import Model, build_model
 from repro_torch.serve.engine import Engine, Request
 from repro_torch.serve.quota import TenantQuota
 from repro_torch.serve.scheduler import FairScheduler
+from repro_torch.train.loop import make_train_step
+from repro_torch.train.train_state import init_state
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARCH = "zamba2-2.7b"
@@ -59,6 +67,10 @@ SINGLE = JMeshPlan((1,), ("data",))
 TOL = 1e-4
 # the paged decode against the Pallas kernel (tests/test_torch_kernels.py)
 PAGED_TOL = 1e-5
+# a training step, as tests/test_torch_ssm.py: the loss absolute, each
+# gradient leaf relative to its largest magnitude
+LOSS_TOL = 1e-5
+GRAD_TOL = 2e-5
 #: the two cuts: the reference's reduced() and one with zamba2's attention
 #: shape (head_dim 80, no GQA) and two sites of the shared block
 CUTS = {"reduced": {},
@@ -405,6 +417,196 @@ def test_paged_pool_splits_kv_from_slot_state():
     for sub in slots.values():
         assert sorted(sub) == ["conv", "ssm"]
         assert sub["ssm"].shape[:2] == (cfg.num_layers // k, 3)
+
+
+# ---------------------------------------------------------------------------
+# (d) training: forward_train over the Mamba2 groups and the shared
+# block's sites
+TRAIN_B, TRAIN_S = 2, 40          # 40 rows: the SSM blocks pad to 48
+
+
+def _train_models(cut, policy):
+    over = dict(CUTS[cut], dtype="float32")
+    jm = jbuild(JRunConfig(model=JARCHS[ARCH].reduced(**over),
+                           shape=JShapeConfig("train", TRAIN_S, TRAIN_B,
+                                              "train"),
+                           mesh=SINGLE, memory=JMemoryPlan(policy=policy)))
+    tm = build_model(RunConfig(model=TARCHS[ARCH].reduced(**over),
+                               shape=ShapeConfig("train", TRAIN_S, TRAIN_B,
+                                                 "train"),
+                               memory=MemoryPlan(policy=policy)),
+                     device="cpu")
+    return jm, tm
+
+
+@pytest.mark.parametrize("policy", ["host", "none"])
+@pytest.mark.parametrize("cut", sorted(CUTS))
+def test_loss_fn_and_grads_match_reference(cut, policy):
+    """One step's loss and every gradient leaf, the shared block's
+    included (autograd's sum over its sites against ``jax.grad``'s over
+    the reference's closed-over ``params["shared"]``), against the
+    reference's; under ``host`` every sub-layer's input is stashed (no
+    codec) and the sub-layer recomputed in backward, one stash and one
+    fetch a sub-layer."""
+    jm, tm = _train_models(cut, policy)
+    assert tm.runtime.offloads == (policy == "host")
+    jp = jm.init(jax.random.PRNGKey(0))
+    batch = SyntheticLM(tm.cfg, batch=TRAIN_B, seq=TRAIN_S,
+                        seed=1).batch_at(0)
+    (jl, _), jg = jax.jit(jax.value_and_grad(jm.loss_fn, has_aux=True))(
+        jp, {k: jnp.asarray(v) for k, v in batch.items()})
+    tp = tree.map(lambda t: t.requires_grad_(),
+                  params_from_jax(_np(jp), "cpu"))
+    tl, _ = tm.loss_fn(tp, to_device(batch, "cpu"))
+    leaves, paths = tree.flatten(tp)
+    tg = torch.autograd.grad(tl, leaves)
+    assert abs(tl.item() - float(jl)) < LOSS_TOL
+    want = _np(jg)
+    assert any(p[0] == "shared" for p in paths)
+    for g, path in zip(tg, paths):
+        w = want
+        for k in path:
+            w = w[k]
+        assert np.abs(w).max() > 0, path
+        _close(g, w, GRAD_TOL, "/".join(path))
+    rep = tm.runtime.traffic_report()
+    group, n_groups = ttfm.arch_group(tm.cfg)
+    calls = n_groups * len(group) if policy == "host" else 0
+    assert rep.get("stash", {}).get("calls", 0) == calls
+    assert rep.get("fetch", {}).get("calls", 0) == calls
+
+
+@pytest.mark.parametrize("cut", sorted(CUTS))
+def test_each_site_stashes_under_the_shared_name(cut):
+    """Under ``host`` + fp8 the shared block stashes once a site under
+    ``shared_layer`` and each Mamba2 block once under ``ssm_layer``; each
+    stash is fetched once in backward, the wire at the fp8 codec's
+    nominal ratio, half the raw bytes (as the reference meters it)."""
+    cfg = TARCHS[ARCH].reduced(dtype="float32", **CUTS[cut])
+    tm = build_model(RunConfig(model=cfg,
+                               shape=ShapeConfig("train", TRAIN_S, TRAIN_B,
+                                                 "train"),
+                               memory=MemoryPlan(policy="host",
+                                                 compress="fp8")),
+                     device="cpu")
+    names = {"stash": [], "fetch": []}
+    rt = tm.runtime
+    for d in names:
+        def spy(*a, _d=d, _fn=getattr(rt, d), **kw):
+            names[_d].append(a[1].name)
+            return _fn(*a, **kw)
+        setattr(rt, d, spy)
+    params = tm.init(0)
+    for t in tree.leaves(params):
+        t.requires_grad_(True)
+    loss, _ = tm.loss_fn(params, to_device(SyntheticLM(
+        cfg, batch=TRAIN_B, seq=TRAIN_S, seed=2).batch_at(0), "cpu"))
+    loss.backward()
+    group, n_groups = ttfm.arch_group(cfg)
+    for d, got in names.items():
+        assert got.count("shared_layer") == n_groups, d
+        assert got.count("ssm_layer") == n_groups * group.count("ssm"), d
+    rep = rt.traffic_report()
+    raw = n_groups * len(group) * TRAIN_B * TRAIN_S * cfg.d_model * 4
+    for d in names:
+        assert rep[d]["raw_bytes"] == raw and rep[d]["wire_bytes"] == raw / 2
+    assert torch.isfinite(loss) and all(
+        t.grad is not None and torch.isfinite(t.grad).all()
+        for t in tree.leaves(params))
+
+
+@pytest.mark.parametrize("sites", [1, 2, 3])
+def test_wrap_layer_sums_a_shared_leaf_over_its_calls(sites):
+    """The same parameter leaves through ``sites`` wrapped calls: the
+    input and each leaf's gradient are those of the unwrapped chain
+    (autograd sums each call's parameter gradient), and the saved leaves
+    are not written."""
+    rt = MemoryRuntime(MeshPlan((1,), ("data",)), MemoryPlan(policy="host"),
+                       device="cpu")
+    assert rt.offloads
+    gen = torch.Generator().manual_seed(sites)
+    w0 = torch.randn((8, 8), generator=gen) / 3
+    b0 = torch.randn((8,), generator=gen)
+    x0 = torch.randn((2, 5, 8), generator=gen)
+
+    def layer(p, x):
+        return x + torch.tanh(x @ p["w"] + p["b"])
+
+    def run(fn):
+        p = {"w": w0.clone().requires_grad_(), "b": b0.clone()
+             .requires_grad_()}
+        x = x0.clone().requires_grad_()
+        y = x
+        for _ in range(sites):
+            y = fn(p, y)
+        (y.square().sum()).backward()
+        return x.grad, p["w"].grad, p["b"].grad, p
+
+    got, want = run(rt.wrap_layer(layer, "shared_layer")), run(layer)
+    for g, w in zip(got[:3], want[:3]):
+        torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-6)
+    assert torch.equal(got[3]["w"].detach(), w0)
+    assert torch.equal(got[3]["b"].detach(), b0)
+    assert rt.traffic_report()["stash"]["calls"] == sites
+
+
+def test_bf16_train_step_keeps_f32_leaves():
+    """A bf16 training step of the hybrid: the norms (the shared block's
+    too) and the SSM's A_log, D, dt_bias and norm_scale stay float32
+    through the step and the optimizer, each with float32 moments; the
+    weights stay bf16; every leaf moves and stays finite."""
+    cfg = TARCHS[ARCH].reduced(dtype="bfloat16", **CUTS["hd80x2"])
+    tc = TrainConfig(total_steps=2, warmup_steps=0, learning_rate=1e-3)
+    tm = build_model(RunConfig(model=cfg,
+                               shape=ShapeConfig("train", TRAIN_S, TRAIN_B,
+                                                 "train"),
+                               memory=MemoryPlan(policy="host",
+                                                 compress="fp8"),
+                               train=tc), device="cpu")
+    state = init_state(tm, tc)
+    before = tree.map(lambda t: t.detach().clone(), state["params"])
+    dtypes = {p: t.dtype for t, p in zip(*tree.flatten(before))}
+    state, metrics = make_train_step(tm, tc)(state, to_device(SyntheticLM(
+        cfg, batch=TRAIN_B, seq=TRAIN_S, seed=3).batch_at(0), "cpu"))
+    assert np.isfinite(float(metrics["loss"]))
+    f32 = {("shared", "ln1", "scale"), ("shared", "ln2", "scale"),
+           ("final_norm", "scale")} | {
+        ("groups", f"sub_{j}", *k) for j in range(2)
+        for k in (("ln1", "scale"), ("ssm", "A_log"), ("ssm", "D"),
+                  ("ssm", "dt_bias"), ("ssm", "norm_scale"))}
+    leaves, paths = tree.flatten(state["params"])
+    for t, old, path in zip(leaves, tree.leaves(before), paths):
+        want = torch.float32 if path in f32 else torch.bfloat16
+        assert dtypes[path] == t.dtype == want, path
+        assert torch.isfinite(t.float()).all(), path
+        assert not torch.equal(t, old), path
+    for m in tree.leaves({k: state["opt"][k] for k in ("m", "v")}):
+        assert m.dtype == torch.float32
+
+
+def test_train_cli_smoke():
+    """``launch.train --arch zamba2-2.7b`` on the CPU with the host tier
+    and the fp8 stash: finite losses, every sub-layer stashed (the
+    reduced twin: one group of two Mamba2 blocks and the shared block),
+    equal stash and fetch bytes."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", ARCH,
+         "--smoke", "--device", "cpu", "--steps", "3", "--policy", "host",
+         "--compress", "fp8", "--log-every", "1"],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    out = proc.stdout
+    losses = [float(line.split("loss=")[1].split()[0])
+              for line in out.splitlines() if " loss=" in line]
+    assert len(losses) == 3 and all(np.isfinite(losses)), out[-2000:]
+    assert "1 of 1 layer groups stashed (3 sub-layers)" in out, out[-2000:]
+    line = next(x for x in out.splitlines()
+                if "memory traffic: tier=host+fp8" in x)
+    per = line.split("{", 1)[1]
+    stash = per.split("'stash': '")[1].split("'")[0]
+    fetch = per.split("'fetch': '")[1].split("'")[0]
+    assert stash == fetch and "/9x of" in stash, line
 
 
 def test_serve_cli_smoke():
