@@ -12,8 +12,8 @@
 set -u
 cd "$(dirname "$0")"
 CSRC=src/repro_torch/kernels/csrc
-MAIN='check_main_path_logits() check_paged(torch.device(0),{})'
-KERNEL='check_paged(torch.device(0),{})'
+MAIN='check_main_path_logits() check_paged(torch.device(0),{},{})'
+KERNEL='check_paged(torch.device(0),{},{})'
 FLASH='check_flash(torch.device(0),{},{}) check_train_flash_vs_plain()'
 CODEC='check_codec(torch.device(0),{},{})'
 PAGES='check_codec_pages(torch.device(0),{},{})'
@@ -27,7 +27,10 @@ ZAMBA='check_zamba2_serve_logits()'
 # GQA (32 heads over 32 kv heads), so the *_kv_head_mod plants read the
 # same kv head there and are not run against it
 ZAMBA_TRAIN='check_train_zamba2_vs_plain()'
-SHOW='main path logits|reciprocal probe|paged_decode_attention (float|bfloat)|ssd_scan rounding probe|flash_attention_fwd (float|bfloat)|training, |bit-exact|  ssd_scan (float|bfloat)|(mamba2|zamba2) logits|    (scan kernel|paged decode|plain bf16)|gemm_os (float|bfloat)|gemm path|state of the slots|    limits: float32|FAILED'
+# phase 10's comparison (full-width h2o-danube-1.8b, prefix sharing on
+# against off, float32 and bfloat16, and no write into a shared frame)
+DANUBE='check_danube_prefix_logits()'
+SHOW='main path logits|reciprocal probe|paged_decode_attention (float|bfloat)|ssd_scan rounding probe|flash_attention_fwd (float|bfloat)|training, |bit-exact|  ssd_scan (float|bfloat)|(mamba2|zamba2) logits|    (scan kernel|paged decode|plain bf16)|gemm_os (float|bfloat)|gemm path|state of the slots|    limits: float32|    limits \(max|    sharing |danube, sharing on|FAILED'
 ONLY=" $* "
 
 fault() {   # name, file (from the checkout's root), sed expression, checks
@@ -214,3 +217,13 @@ fault gemm_tc_b_major_flipped $CSRC/gemm_os.cu \
 fault engine_state_not_restored src/repro_torch/serve/engine.py \
   's/cache.slot_tree if cache.paged else cache.caches/{} if cache.paged else cache.caches/' \
   "$ZAMBA"
+# prefix sharing: the suffix prefill attends only to its in-flight tokens
+# (blockwise over the suffix), not to the grafted prefix rows
+fault prefix_suffix_in_flight src/repro_torch/models/attention.py \
+  's/            o = prefix_prefill_attention(q, kc, vc, positions, window=window,/            o = blockwise_attention(q, k, v, causal=causal, window=window,/' \
+  "$DANUBE"
+# prefix sharing: the suffix prefill's scatter writes the shared page
+# columns too (the same bytes: only the write itself shows)
+fault prefix_scatter_shared src/repro_torch/serve/engine.py \
+  's/torch.where(cols >= match.write_from, row,/torch.where(cols >= 0, row,/' \
+  "$DANUBE"

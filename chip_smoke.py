@@ -9,7 +9,8 @@ Phases (each failure exits non-zero; nothing is caught and carried on):
 2. build    — compiles the CUDA kernels from ``src/repro_torch/kernels/csrc``.
 3. kernels  — holds each kernel against its plain PyTorch version on the
               card at the main paths' shapes (zamba2-2.7b's too: the paged
-              decode at head_dim 80 without GQA, the scan at 80 heads of
+              decode at head_dim 80 without GQA, and h2o-danube-1.8b's
+              at head_dim 80 with 32 heads over 8 kv heads, the scan at 80 heads of
               state 64 in a prefill and at 8 x 1024 tokens in training,
               the int8 codec on 80-column page rows, the fp8 codec on an
               8192 x 2560 stash, the flash forward at head_dim 80) and
@@ -69,8 +70,9 @@ Phases (each failure exits non-zero; nothing is caught and carried on):
               scan chunks, decode runs at mixed lengths.  The whole path
               runs twice, the SSD scan on its plain version and then on
               the kernel, the second run emitting the first run's tokens,
-              and every sampled step's logits must agree; then once more
-              counted: every request finished, the scan launched once per
+              on 8 of the 16 requests, and every sampled step's logits
+              must agree; then once more on all 16, counted: every
+              request finished, the scan launched once per
               layer per admission, the spill's stash and fetch bytes equal.
 7. train    — trains full-width mamba2-370m for 10 steps of 8 x 1024
    mamba2     tokens, every layer's input stashed through the fp8 codec to
@@ -111,8 +113,24 @@ Phases (each failure exits non-zero; nothing is caught and carried on):
               the weights in float32 and in bfloat16, every loss and every
               step-1 gradient leaf compared.
 
+10. serve   — serves full-width h2o-danube-1.8b (bf16, random weights
+    danube     from a seed; GQA at head_dim 80) through
+              ``repro_torch.launch.serve`` with prefix sharing: 16 requests
+              of 384 / 448 tokens whose first 328 are shared, so later
+              sessions bind 20 pages read-only, fork the 21st and prefill
+              only their suffix; an overcommitted pool with int8 spill to
+              pinned host memory and in-place kernel decode.  The path
+              runs four times, sharing on and off, in bfloat16 and with
+              the weights in float32, every run after the first on the
+              first's tokens, and every sampled token's logits, keyed by
+              (request, token index), must agree; no run may write a
+              shared frame.  Then once more, counted: every request
+              finished, prefix hits and forks, pages evicted and adopted
+              compressed, the paged decode once per layer per decode call,
+              the codec once a page.
+
 The line before the last is a JSON object with one entry per kernel (its
-launches summed over the counted runs of phases 3 to 9, and per run); the
+launches summed over the counted runs of phases 3 to 10, and per run); the
 last line is ``{"ok": true, "device": {...}}``.
 """
 import gc
@@ -203,8 +221,12 @@ SSM_SERVE_ARGS = ["--arch", "mamba2-370m", "--device", "cuda", "--seed", "0",
 # at 48 layers; the plain
 # version's bfloat16 run lies 2.80 / 0.417 from its float32 run), so the
 # bfloat16 kernel run is held to the distance bfloat16 itself puts between
-# the plain version's run and its float32 run on the same streams
+# the plain version's run and its float32 run on the same streams.  The
+# comparison runs take the first 8 of the 16 requests (more sessions than
+# slots: preemption and decode at mixed lengths remain), to keep the
+# script inside its time; the counted run serves all 16
 SSM_LOGIT_F32_TOL = (1e-2, 1e-3)
+SSM_CMP_ARGS = SSM_SERVE_ARGS + ["--requests", "8"]
 # mamba2 training main path: 48 layers, 8 x 1024 tokens, host tier with the
 # fp8 stash codec
 SSM_TRAIN_STEPS = 10
@@ -296,6 +318,44 @@ ZAMBA_TRAIN_ARGS = ["--arch", "zamba2-2.7b", "--device", "cuda", "--seed",
 # without its chunk decay 0.0056 on step 1's loss (all leaves 1.04 and
 # 1.05: at this depth bfloat16 rounding hides them in the gradients)
 ZAMBA_TRAIN_F32_TOL = {"loss": 5e-3, "leaf_norm": 5e-2}
+
+# h2o-danube-1.8b prefix-sharing serving main path: full-width (24 layers,
+# d 2560, 32 query heads of 80 over 8 kv heads), 16 requests of 384 / 448
+# prompt tokens whose first 328 are one shared head (20 whole pages of 16
+# and 8 rows: later sessions bind 20 pages read-only and fork page 21) +
+# 64 new, over 6 slots of 512 rows, a pool of 96 pages of 16 (192 pages'
+# worth of slots: overcommitted), int8 spill to pinned host memory,
+# in-place kernel decode, fair preemption every 16 tokens.  Its 4096-row
+# window is longer than any session, so the window term masks nothing
+# here (the CPU tests reach it on the reduced config's 64 rows)
+DANUBE_LAYERS, DANUBE_PAGES = 24, 96
+DANUBE_ARGS = ["--arch", "h2o-danube-1.8b", "--device", "cuda", "--seed",
+               "0", "--batch", "6", "--max-len", "512", "--page-size", "16",
+               "--pages", str(DANUBE_PAGES), "--requests", "16",
+               "--prompt-len", "384,448", "--new-tokens", "64",
+               "--scheduler", "fair", "--quantum", "16", "--spill", "host",
+               "--page-codec", "int8", "--decode-kernel",
+               "--shared-prefix", "328", "--prefix-share"]
+# every sampled token's logits, keyed by (request, token index), sharing
+# on against sharing off on the first run's tokens.  Sharing changes the
+# page pressure and so which pages go through the lossy int8 codec (on
+# the smoke twin 368 pages evicted with sharing, 4061 without), so these
+# runs spill raw pages: a suffix prefill over grafted rows then differs
+# from a whole-prompt prefill by arithmetic only.  Both are held to
+# shares of the distance bfloat16 itself puts between the sharing-off run
+# and its float32 run (as phase 8).  On an H100 (700 W), over all 1024
+# sampled tokens at full depth, that distance read 0.112 max / 0.017
+# worst row's mean with |logits| up to 5.5; sharing on vs off read
+# 1.23e-5 / 2.41e-6 in float32 (limit 1/50 of the distance) and 0.086 /
+# 0.0146 in bfloat16.  In bfloat16 the two runs take two rounding paths
+# (suffix prefill, whole-prompt prefill), each about one such distance
+# from float32, so their own distance may come near twice it: the limit
+# is 1.5 times it.  A suffix prefill that attends only to its in-flight
+# tokens read 6.66 / 1.19 in both
+_CODEC = DANUBE_ARGS.index("--page-codec")
+DANUBE_CMP_ARGS = DANUBE_ARGS[:_CODEC] + DANUBE_ARGS[_CODEC + 2:]
+DANUBE_CMP_UNSHARED_ARGS = DANUBE_CMP_ARGS[:-1]
+DANUBE_F32_SHARE, DANUBE_BF16_SHARE = 0.02, 1.5
 
 
 def fail(msg: str) -> None:
@@ -445,7 +505,7 @@ def paged_library(args, side, idx):
         attn_mask=mask, enable_gqa=True)
 
 
-def check_paged(dev, results):
+def check_paged(dev, results, others):
     from repro_torch.kernels import ref
     from repro_torch.kernels.paged_attention import paged_decode_attention
     # comparison at the checked shape: several fills incl. -1 (nothing
@@ -508,6 +568,13 @@ def check_paged(dev, results):
         replaces="src/repro/kernels/paged_attention.py:189",
         max_abs_err=max_err[torch.bfloat16], ms=ms, plain_ms=plain,
         bound_ms=b_ms, bound_by=b_by, library_ms=lib, eager_ms=host)
+    # h2o-danube-1.8b's serving shape (phase 10): GQA at head_dim 80, 32
+    # query heads over 8 kv heads (G 4), 6 slots of 32 pages, a pool and a
+    # side pool of DANUBE_PAGES frames, up to 511 rows visible
+    check_paged_at(dev, others, "danube", "hd 80, H 32 over K 8 (G 4)",
+                   dict(B=6, H=32, K=8, hd=80, page=16, pp=32,
+                        P=DANUBE_PAGES + 1, C=DANUBE_PAGES),
+                   (0, 15, 16, 327, 328, 447, 510), seed=11)
 
 
 def codec_case(dev, dtype, R, C, seed):
@@ -705,7 +772,7 @@ def check_codec_pages(dev, results, others):
     leaves of one page packed in one launch straight from a full-width
     pool's frame and decoded in one launch straight into another frame
     (smollm's page: 2 leaves of (30, 16, 3, 64); zamba2's: 2 of (9, 16,
-    32, 80)), bit-exact against the plain versions leaf by leaf, float32
+    32, 80); h2o-danube's: 2 of (24, 16, 8, 80)), bit-exact against the plain versions leaf by leaf, float32
     and bfloat16 pools, for each codec; then, for each pack, half-way ties,
     ragged tails, row blocks whose 16-code chunks straddle two scales, all
     zeros and an absmax in the last slice, in both regimes (a row block
@@ -715,7 +782,10 @@ def check_codec_pages(dev, results, others):
     from repro_torch.kernels import ref
     from repro_torch.kernels import offload_pack as kp
     packs = codec_packs()
-    pages = {"smollm-135m": 64, "zamba2-2.7b": 96}
+    pages = {"smollm-135m": 64, "zamba2-2.7b": 96,
+             "h2o-danube-1.8b": DANUBE_PAGES}
+    tags = {"smollm-135m": "page", "zamba2-2.7b": "zamba2_page",
+            "h2o-danube-1.8b": "danube_page"}
     for dtype in (torch.float32, torch.bfloat16):
         for arch, num in pages.items():
             leaves, src, dst = codec_page(dev, arch, num, dtype, seed=num)
@@ -785,7 +855,8 @@ def check_codec_pages(dev, results, others):
                 n_cases += 1
     torch.cuda.synchronize()
     print("  fp8 / int8 / blocksparse pack and the unpack of a full-width "
-          "page, one launch each, from and into the pool (smollm, zamba2; "
+          "page, one launch each, from and into the pool (smollm, zamba2, "
+          "danube; "
           "f32, bf16; leaves 1e4 apart): bit-exact; and over "
           f"{n_cases} more (case, codec) pairs (ties at absmax 127, all "
           "zeros, an absmax in the last slice, both regimes; 1601 x 63, "
@@ -795,7 +866,7 @@ def check_codec_pages(dev, results, others):
     for arch, num in pages.items():
         leaves, src, dst = codec_page(dev, arch, num, torch.bfloat16, seed=1)
         n = sum(x.numel() for x in src)
-        tag = "page" if arch == "smollm-135m" else "zamba2_page"
+        tag = tags[arch]
         for name, (_, _, kern_leaves, plain_leaves) in packs.items():
             row = codec_row(lambda: kern_leaves(src),
                             lambda: plain_leaves(src),
@@ -1223,25 +1294,18 @@ def check_gemm_path():
     return launches
 
 
-def check_zamba2_kernels(dev, others):
-    """The kernels at zamba2-2.7b's shapes, new to them: the paged
-    decode at B 6, H = K = 32 (no GQA), head_dim 80, 448 rows visible,
-    with int8 side-pool frames (f32 2e-5, bf16 two bf16 ulps of |out|, as
-    ``check_paged``); the scan at (1, 384, 80 heads, P 64), N 64, with and
-    without an initial state, and at the training path's (8, 1024, 80
-    heads, P 64), N 64 (``SSD_RTOL``); the int8 pack and the unpack of one
-    spilled page leaf, 9 sites x 16 rows x 32 heads = 4608 rows of 80,
-    bit-exact; the fp8 pack and the unpack of one stashed sub-layer input,
-    8192 x 2560 as one row block, bit-exact.  Each timed in bfloat16."""
-    from repro_torch.kernels import offload_pack as kp
+def check_paged_at(dev, others, label, what, shape, idxs, seed):
+    """The paged decode at one model's serving shape (``shape``: the
+    arguments of ``paged_case``), with int8 side-pool frames, at each cache
+    index of ``idxs``: float32 to 2e-5, bfloat16 to two bf16 ulps of
+    |out|, as ``check_paged``; then timed in bfloat16 at the last index
+    into ``others["paged_decode_attention@<label>"]``."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.paged_attention import paged_decode_attention
-    from repro_torch.kernels.ssd_scan import ssd_scan
-    shape = dict(B=6, H=32, K=32, hd=80, page=16, pp=32, P=193, C=32)
     for dtype in (torch.float32, torch.bfloat16):
-        args, side = paged_case(dev, dtype, seed=7, **shape)
+        args, side = paged_case(dev, dtype, seed=seed, **shape)
         share = 0.0
-        for idx in (0, 15, 127, 383, 447):
+        for idx in idxs:
             for extra in ({}, side):
                 got = paged_decode_attention(*args, idx, **extra)
                 torch.cuda.synchronize()
@@ -1249,12 +1313,45 @@ def check_zamba2_kernels(dev, others):
                 tol = 2e-5 if dtype == torch.float32 else bf16_ulps(want, 2)
                 e = (got.float() - want.float()).abs().max().item()
                 if not torch.isfinite(got.float()).all() or e > tol:
-                    fail(f"paged decode at zamba2's shape {dtype} cache_index "
-                         f"{idx}: max abs err {e} > {tol}")
+                    fail(f"paged decode at {label}'s shape {dtype} "
+                         f"cache_index {idx}: max abs err {e} > {tol}")
                 share = max(share, e / tol)
-        print(f"  paged_decode_attention at hd 80, H = K = 32, "
-              f"{str(dtype)[6:]}: at most {share:.2f} of the limit",
-              flush=True)
+        print(f"  paged_decode_attention at {what}, {str(dtype)[6:]}: at "
+              f"most {share:.2f} of the limit", flush=True)
+    args, side = paged_case(dev, torch.bfloat16, seed=seed + 1, **shape)
+    idx = idxs[-1]
+
+    def paged():
+        return paged_decode_attention(*args, idx, **side)
+
+    nbytes, ops = paged_bytes_ops(args, idx)
+    b_ms, b_by = bound_ms(nbytes, ops, PEAK_BF16_FLOPS)
+    others[f"paged_decode_attention@{label}"] = dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/paged_attention.cu",
+        replaces="src/repro/kernels/paged_attention.py:189",
+        max_abs_err=None, ms=device_ms(paged), plain_ms=device_ms(
+            lambda: ref.paged_decode_attention_ref(*args, idx, **side)),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=device_ms(lambda: paged_library(args, side, idx)),
+        eager_ms=eager_ms(paged))
+
+
+def check_zamba2_kernels(dev, others):
+    """The kernels at zamba2-2.7b's shapes, new to them: the paged
+    decode at B 6, H = K = 32 (no GQA), head_dim 80, 448 rows visible,
+    with int8 side-pool frames (``check_paged_at``); the scan at (1, 384, 80 heads, P 64), N 64, with and
+    without an initial state, and at the training path's (8, 1024, 80
+    heads, P 64), N 64 (``SSD_RTOL``); the int8 pack and the unpack of one
+    spilled page leaf, 9 sites x 16 rows x 32 heads = 4608 rows of 80,
+    bit-exact; the fp8 pack and the unpack of one stashed sub-layer input,
+    8192 x 2560 as one row block, bit-exact.  Each timed in bfloat16."""
+    from repro_torch.kernels import offload_pack as kp
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    check_paged_at(dev, others, "zamba2", "hd 80, H = K = 32",
+                   dict(B=6, H=32, K=32, hd=80, page=16, pp=32, P=193, C=32),
+                   (0, 15, 127, 383, 447), seed=7)
+    for dtype in (torch.float32, torch.bfloat16):
         worst = 0.0
         for b, S, init in ((1, 384, False), (1, 384, True),
                            (8, 1024, False)):
@@ -1286,22 +1383,6 @@ def check_zamba2_kernels(dev, others):
     print("  int8_pack and unpack of a zamba2 page leaf (4608 x 80): "
           "bit-exact", flush=True)
 
-    args, side = paged_case(dev, torch.bfloat16, seed=8, **shape)
-    idx = 447
-
-    def paged():
-        return paged_decode_attention(*args, idx, **side)
-
-    nbytes, ops = paged_bytes_ops(args, idx)
-    b_ms, b_by = bound_ms(nbytes, ops, PEAK_BF16_FLOPS)
-    others["paged_decode_attention@zamba2"] = dict(
-        route="cuda", source="src/repro_torch/kernels/csrc/paged_attention.cu",
-        replaces="src/repro/kernels/paged_attention.py:189",
-        max_abs_err=None, ms=device_ms(paged), plain_ms=device_ms(
-            lambda: ref.paged_decode_attention_ref(*args, idx, **side)),
-        bound_ms=b_ms, bound_by=b_by,
-        library_ms=device_ms(lambda: paged_library(args, side, idx)),
-        eager_ms=eager_ms(paged))
     x, dt, A, B, C, _ = ssd_case(dev, torch.bfloat16, 1, 384, 80, 1, 61,
                                  P=64, N=64)
     nbytes, ops = ssd_bytes_ops(x, dt, B, None, 128)
@@ -1937,7 +2018,7 @@ def check_serve_kernels_vs_plain(label, argv, kinds, what, f32_tol=None,
 def check_ssm_serve_logits() -> None:
     """Phase 6: mamba2 serving, the scan kernel against its plain
     version."""
-    check_serve_kernels_vs_plain("mamba2", SSM_SERVE_ARGS, ("ssd",),
+    check_serve_kernels_vs_plain("mamba2", SSM_CMP_ARGS, ("ssd",),
                                  "scan kernel", SSM_LOGIT_F32_TOL)
 
 
@@ -2049,6 +2130,206 @@ def check_train_zamba2():
     return launches
 
 
+def shared_frames(cache) -> set:
+    """The frames a writer must not touch: held by two sessions, or named
+    by the prefix index (a later admission may bind them)."""
+    table = cache.table
+    return set(cache._pid_nodes) | {pid for pid in range(table.num_pages)
+                                    if table.refcount(pid) > 1}
+
+
+def danube_serve_run(argv, dtype: str, forced=None):
+    """Drive the prefix-sharing path ``argv`` describes (fresh model from
+    the same seed, its weights in ``dtype``).  Returns the logits of every
+    sampled token keyed by (request uid, token index), the tokens, and
+    ``stats``: pages evicted and adopted compressed, prefix hits and
+    forks, writes into shared frames (``shared_frames``; by the suffix
+    prefill's scatter or the in-place decode's row), and per engine step
+    the pages the running sessions hold (``held``) against the distinct
+    frames behind them (``frames``), at their peaks.  With ``forced``
+    (another run's tokens, by key) the sessions emit those: the schedule
+    may differ (sharing changes page pressure), the sequences do not."""
+    from collections import deque
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tfm
+    args = serve.parse_args(argv)
+    eng = serve.build_engine(args, dtype=dtype)
+    cache = eng.cache
+    rows, logits_by, tokens_by = deque(), {}, {}
+    stats = {"shared_writes": 0, "suffix": 0, "decodes": 0,
+             "peak_held": 0, "peak_frames": 0}
+    sample, decode, step = eng._sample, eng._decode, eng.step
+    suffix, scatter = eng._prefill_suffix, tfm.scatter_pages
+    targets = []
+
+    def spy_sample(logits):
+        rows.extend(logits.float())
+        return sample(logits)
+
+    def spy_scatter(pool, caches, page_map):
+        targets.extend(page_map.reshape(-1).tolist())
+        return scatter(pool, caches, page_map)
+
+    def spy_suffix(toks, sess, match):
+        held = shared_frames(cache)
+        targets.clear()
+        out = suffix(toks, sess, match)
+        stats["shared_writes"] += len(held & set(targets))
+        stats["suffix"] += 1
+        return out
+
+    def spy_decode(tok, length, mask):
+        written = cache.page_map_host()[mask, length // cache.page_size]
+        stats["shared_writes"] += len(shared_frames(cache)
+                                      & set(written.tolist()))
+        stats["decodes"] += 1
+        return decode(tok, length, mask)
+
+    def spy_step():
+        n = step()
+        pids = [pid for sess in cache.running()
+                for pid in cache.table.resident_pids(sess.uid)]
+        stats["peak_held"] = max(stats["peak_held"], len(pids))
+        stats["peak_frames"] = max(stats["peak_frames"], len(set(pids)))
+        return n
+
+    eng._sample, eng._decode, eng.step = spy_sample, spy_decode, spy_step
+    eng._prefill_suffix = spy_suffix
+    tfm.scatter_pages = spy_scatter
+    try:
+        for sess in serve.submit_requests(eng, args, {}):
+            def emit(tok, sess=sess, orig=sess.emit):
+                key = (sess.uid, len(sess.tokens))
+                logits_by[key] = rows.popleft()
+                tok = forced[key] if forced is not None else tok
+                tokens_by[key] = tok
+                orig(tok)
+            sess.emit = emit
+        eng.run()
+    finally:
+        tfm.scatter_pages = scatter
+    if rows:
+        fail(f"{len(rows)} sampled rows were never emitted")
+    report = eng.traffic_report()
+    stats.update(evictions=report["pages"]["evictions"],
+                 compressed=report["decode_io"]["compressed_adopts"],
+                 hits=report["prefix"]["hits"],
+                 forks=report["prefix"]["forks"])
+    torch.cuda.synchronize()
+    return logits_by, tokens_by, stats
+
+
+def keyed_gap(got, want, label):
+    """(max |d|, worst row's mean |d|, rows whose argmax agrees) of two
+    runs' logits keyed by (request, token index)."""
+    if got.keys() != want.keys():
+        fail(f"{label}: the runs sampled different (request, token) keys")
+    err = mean = 0.0
+    agree = 0
+    for key, w in want.items():
+        g = got[key]
+        if not torch.isfinite(g).all():
+            fail(f"{label} logits are not finite")
+        d = (g - w).abs()
+        err, mean = max(err, d.max().item()), max(mean, d.mean().item())
+        agree += int(g.argmax() == w.argmax())
+    return err, mean, f"{agree}/{len(want)}"
+
+
+def check_danube_prefix_logits() -> None:
+    """Phase 10's comparison: prefix sharing on against off, every sampled
+    token's logits (each admission's prefill and every decode step), in
+    bfloat16 and with the weights in float32, every run after the first
+    on the first's tokens, raw pages spilled (``DANUBE_CMP_ARGS``).  The
+    sharing runs must hit, fork and evict, and never write a shared
+    frame."""
+    base, forced, stats = danube_serve_run(DANUBE_CMP_ARGS, "bfloat16")
+    free_device_memory()
+    runs = {("bfloat16", True): base}
+    for key in (("bfloat16", False), ("float32", True), ("float32", False)):
+        argv = DANUBE_CMP_ARGS if key[1] else DANUBE_CMP_UNSHARED_ARGS
+        runs[key], _, st = danube_serve_run(argv, key[0], forced)
+        free_device_memory()
+        print(f"  danube run {key[0]}, sharing {'on' if key[1] else 'off'}"
+              f": {st}", flush=True)
+        if key == ("bfloat16", False):
+            off_stats = st
+        elif st["shared_writes"]:
+            fail(f"danube {key}: {st['shared_writes']} writes into shared "
+                 "frames")
+    print(f"  danube, sharing on (bf16, the first run): {stats}; the pages "
+          f"the running sessions hold peak at {stats['peak_held']} on "
+          f"{stats['peak_frames']} frames, unshared on "
+          f"{off_stats['peak_frames']}; {stats['evictions']} pages evicted "
+          f"with sharing, {off_stats['evictions']} without", flush=True)
+    if stats["shared_writes"]:
+        fail(f"danube: {stats['shared_writes']} writes into shared frames "
+             "(a suffix prefill's scatter or a decode's row)")
+    if min(stats[k] for k in ("hits", "forks", "evictions", "suffix")) <= 0:
+        fail(f"danube: the sharing run must hit, fork and evict: {stats}")
+    gaps = {"float32": keyed_gap(runs["float32", True],
+                                 runs["float32", False], "danube"),
+            "bfloat16": keyed_gap(base, runs["bfloat16", False], "danube"),
+            "bfloat16 rounding": keyed_gap(runs["bfloat16", False],
+                                           runs["float32", False], "danube")}
+    top = max(w.abs().max().item() for w in base.values())
+    print(f"  danube logits over {len(base)} sampled tokens, |logits| max "
+          f"{top:.3g}:", flush=True)
+    for name, (err, mean, agree) in gaps.items():
+        line = ("sharing off, bf16 vs f32" if name == "bfloat16 rounding"
+                else f"sharing on vs off, {name}")
+        print(f"    {line}: max abs err {err:.4g}, worst row's mean "
+              f"{mean:.3g}, argmax agreement {agree}", flush=True)
+    tol = {dtype: tuple(share * g for g in gaps["bfloat16 rounding"][:2])
+           for dtype, share in (("float32", DANUBE_F32_SHARE),
+                                ("bfloat16", DANUBE_BF16_SHARE))}
+    print(f"    limits (max, worst row's mean): float32 {tol['float32']}, "
+          f"bfloat16 {tol['bfloat16']}", flush=True)
+    for dtype, (err, mean) in tol.items():
+        if gaps[dtype][0] > err or gaps[dtype][1] > mean:
+            fail(f"danube logits ({dtype}): sharing on moves them from "
+                 f"sharing off beyond {tol[dtype]}")
+
+
+def check_danube_serve_main_path():
+    """Phase 10's counted run: every request finishes with 64 tokens; the
+    prefix cache hits and forks; pages are evicted and resumed compressed;
+    the paged decode launches once per layer per decode call and the codec
+    once a page; what was stashed comes back byte for byte."""
+    from repro_torch.launch import serve
+    eng, launches = counted(lambda: serve.main(DANUBE_ARGS))
+    print(f"  launches on the danube serving path: {launches}", flush=True)
+    sessions = eng.sessions
+    if len(sessions) != 16 or any(s.finish_reason != "length"
+                                  or len(s.result()) != 64
+                                  for s in sessions):
+        fail("not every request finished with 64 tokens: " + str(
+            [(s.uid, s.finish_reason, len(s.result())) for s in sessions]))
+    vocab = eng.model.cfg.padded_vocab
+    if any(not 0 <= t < vocab for s in sessions for t in s.result()):
+        fail("a generated token lies outside the padded vocabulary")
+    report = eng.traffic_report()
+    prefix, steps = report["prefix"], report["decode_io"]["steps"]
+    print(f"  danube prefix: {prefix}; pages {report['pages']}; compressed "
+          f"adoptions {report['decode_io']['compressed_adopts']}; "
+          f"preemptions {sum(s.preemptions for s in sessions)}", flush=True)
+    if prefix["hits"] <= 0 or prefix["forks"] <= 0:
+        fail(f"the danube path must hit and fork prefix pages: {prefix}")
+    if report["pages"]["evictions"] <= 0 or \
+            report["decode_io"]["compressed_adopts"] <= 0:
+        fail("the danube path must evict pages and resume some compressed")
+    if launches["paged_decode_attention"] != DANUBE_LAYERS * steps:
+        fail(f"paged_decode_attention launched "
+             f"{launches['paged_decode_attention']} times in {steps} decode "
+             f"calls; want {DANUBE_LAYERS} each")
+    check_page_launches("danube", report, launches)
+    stash, fetch = report.get("kv_stash", {}), report.get("kv_fetch", {})
+    if not stash.get("calls") or any(stash.get(k) != fetch.get(k)
+                                     for k in ("wire_bytes", "calls")):
+        fail("the danube spill did not move equal stash and fetch bytes")
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a GPU")
@@ -2095,7 +2376,7 @@ def main() -> None:
     phase("phase 3: kernels against their plain versions")
     t0 = time.perf_counter()
     results, others = {}, {}
-    check_paged(dev, results)
+    check_paged(dev, results, others)
     check_codec(dev, results, others)
     check_codec_pages(dev, results, others)
     check_flash(dev, results, others)
@@ -2154,6 +2435,14 @@ def main() -> None:
     t0 = time.perf_counter()
     by_path["train_zamba2"] = check_train_zamba2()
     print(f"  phase 9: {time.perf_counter() - t0:.1f} s wall", flush=True)
+    free_device_memory()
+
+    phase("phase 10: prefix-sharing serving main path (full-width "
+          "h2o-danube-1.8b, bf16, a 328-token shared head, int8 spill)")
+    t0 = time.perf_counter()
+    check_danube_prefix_logits()
+    by_path["serve_danube"] = check_danube_serve_main_path()
+    print(f"  phase 10: {time.perf_counter() - t0:.1f} s wall", flush=True)
     phase("done")
 
     rows = []

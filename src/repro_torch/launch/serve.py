@@ -15,7 +15,10 @@ cold pages spill lazily, per page, through the per-tenant ``--page-codec``
 ``--decode-kernel`` decodes in place over the page table through the
 paged-attention kernel (cold int8 pages may then stay compressed-resident);
 the int8 spill codec always runs through its pack/unpack kernels on the
-card.  A hybrid model (zamba2) pages its shared attention block's k/v and
+card.  ``--prefix-share`` (paged only) binds the pages of a prompt prefix
+already in the cache read-only and forks the page where a prompt leaves
+it; ``--shared-prefix N`` starts every synthetic prompt with the same N
+tokens.  A hybrid model (zamba2) pages its shared attention block's k/v and
 keeps each slot's Mamba2 conv / ssm state beside the pool, parked whole
 when its session is preempted.  The summary ends with the launches of
 each kernel wrapper during the run (0 on the CPU, where every wrapper
@@ -79,9 +82,15 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "smaller overcommits)")
     ap.add_argument("--page-codec", default=None,
                     help="default spill codec for cold pages (fp8/int8/...)")
+    ap.add_argument("--prefix-share", action="store_true",
+                    help="share common prompt-prefix pages copy-on-write "
+                         "across sessions (paged cache only)")
     ap.add_argument("--decode-kernel", action="store_true",
                     help="decode in place over the page table (paged "
                          "attention kernel)")
+    ap.add_argument("--shared-prefix", type=int, default=0,
+                    help="draw the first N prompt tokens from a common "
+                         "prefix so --prefix-share has something to hit")
     ap.add_argument("--tenant-quota", default=None,
                     help="per-tenant caps, e.g. 'pages=16,sessions=2' or "
                          "'a:pages=8;b:sessions=1,codec=int8'")
@@ -94,6 +103,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     if args.decode_kernel and not args.page_size:
         ap.error("--decode-kernel reads through the page table: pass "
                  "--page-size")
+    if args.prefix_share and not args.page_size:
+        ap.error("--prefix-share reuses whole pages: pass --page-size")
     return args
 
 
@@ -118,23 +129,28 @@ def build_engine(args: argparse.Namespace,
                   seed=args.seed, scheduler=sched, spill=args.spill,
                   page_size=args.page_size, pages=args.pages,
                   quota=quota_from_cli(args.tenant_quota, args.page_codec),
-                  decode_kernel=args.decode_kernel)
+                  decode_kernel=args.decode_kernel,
+                  prefix_share=args.prefix_share)
 
 
 def submit_requests(eng: Engine, args: argparse.Namespace,
                     first_token_at: dict) -> list:
-    """The synthetic requests (prompts from ``--seed``); each session's
-    first token time lands in ``first_token_at``."""
+    """The synthetic requests (prompts from ``--seed``, each starting with
+    the ``--shared-prefix`` tokens drawn first); each session's first
+    token time lands in ``first_token_at``."""
     rng = np.random.default_rng(args.seed)
+    vocab = eng.model.cfg.vocab_size
+    head = (rng.integers(0, vocab, size=(args.shared_prefix,))
+            if args.shared_prefix > 0 else np.zeros((0,), np.int64))
     sessions = []
     for i in range(args.requests):
         deadline = (args.deadline_slack + (i + 1) * args.new_tokens
                     if args.deadline_slack is not None else None)
+        tail = max(1, args.prompt_len[i % len(args.prompt_len)] - len(head))
+        prompt = np.concatenate([head, rng.integers(0, vocab, size=(tail,))])
         sessions.append(eng.submit(Request(
             uid=i,
-            prompt=rng.integers(0, eng.model.cfg.vocab_size,
-                                size=(args.prompt_len[i % len(
-                                    args.prompt_len)],)).astype(np.int32),
+            prompt=prompt.astype(np.int32),
             max_new_tokens=args.new_tokens + i * args.stagger,
             priority=i % 3 if args.scheduler == "priority" else 0,
             tenant=f"t{i % max(1, args.tenants)}",
@@ -213,6 +229,11 @@ def main(argv=None) -> Engine:
               f"a full gather touches), "
               f"{dio['compressed_resident']} pages compressed-resident "
               f"({dio['compressed_adopts']} adoptions)")
+    if report.get("prefix", {}).get("enabled"):
+        pf = report["prefix"]
+        print(f"prefix: {pf['hits']} page hits, {pf['forks']} forks, "
+              f"{pf['rows_reused']}/{pf['rows_prompted']} prompt rows "
+              f"reused (hit rate {pf['hit_rate']:.1%})")
     if eng.quota is not None:
         print("tenants:", {t: u for t, u in eng.quota_report().items()})
     print("kernel launches: " + ", ".join(

@@ -5,9 +5,13 @@
   the flash kernel instead (``kernels/ops.flash_attention``), whose plain
   twin and backward are this function.
 * :func:`decode_attention` — single-token decode against a KV cache.
+* :func:`prefix_prefill_attention` — a prefix-sharing admission's suffix
+  prefill: several tokens against a cache whose first rows were grafted
+  from shared (or forked) pages.
 * :func:`attention_block` — projections + RoPE + attend + output
   projection, with the serving cache branches: prefill writes the prompt's
-  rows, decode writes one row, and the paged branch writes the step's row
+  rows, a suffix prefill (``prefix_attend``) the suffix's rows at
+  ``cache_index``, decode writes one row, and the paged branch writes the step's row
   straight into its page frame and attends over the page pool through the
   paged-attention kernel (``kernels/ops.paged_attention``).
 
@@ -113,15 +117,53 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return out.reshape(B, 1, H, hd).to(q.dtype)
 
 
+def prefix_prefill_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                             v_cache: torch.Tensor, positions: torch.Tensor,
+                             *, window: int = 0,
+                             softcap: float = 0.0) -> torch.Tensor:
+    """Multi-token attention over a cache holding a reused prefix.
+
+    q: (B, S2, H, hd), the suffix tokens; caches: (B, T, K, hd), the
+    grafted prefix rows plus the just-written suffix rows; positions: (B,
+    S2).  The query at absolute position p attends to cache rows [0, p]
+    (within the window when one is set); rows past it (stale frames) are
+    masked, and a padded query whose position masks every row stays
+    finite."""
+    B, S2, H, hd = q.shape
+    T, K = k_cache.shape[1], k_cache.shape[2]
+    G = H // K
+    scale = 1.0 / math.sqrt(hd)
+    qq = q.reshape(B, S2, K, G, hd)
+    s = torch.einsum("bqkgd,btkd->bkgqt", qq.float(),
+                     k_cache.float()) * scale
+    if softcap > 0:
+        s = torch.tanh(s / softcap) * softcap
+    t = torch.arange(T, device=q.device)
+    p = positions[:, None, None, :, None]            # (B, 1, 1, S2, 1)
+    mask = t <= p
+    if window > 0:
+        mask &= t > p - window
+    s = torch.where(mask, s, NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqt,btkd->bkgqd", w.to(v_cache.dtype).float(),
+                       v_cache.float())
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S2, H, hd).to(q.dtype)
+
+
 # ---------------------------------------------------------------------------
 def attention_block(params: dict, ctx: ModelContext, x: torch.Tensor,
                     positions: torch.Tensor, *, causal: bool = True,
                     cache: Optional[Cache] = None,
                     cache_index: Optional[int] = None,
+                    prefix_attend: bool = False,
                     paged: Optional[dict] = None
                     ) -> Tuple[torch.Tensor, Optional[Cache]]:
     """Full attention sub-block; returns ``(out, cache)`` (cache mutated in
     place).
+
+    ``prefix_attend``: a prefix-sharing suffix prefill — the S tokens are
+    the prompt's tail, written at ``cache_index``, and attend over the
+    cache (the grafted prefix rows included) instead of only each other.
 
     ``paged``: in-place paged decode — the cache leaves ARE the layer's page
     pool (P, page, K, hd) plus the int8 side pool (``kq``/``vq``/``ks``/
@@ -157,14 +199,19 @@ def attention_block(params: dict, ctx: ModelContext, x: torch.Tensor,
             vq_pool=cache.get("vq"), k_scale=cache.get("ks"),
             v_scale=cache.get("vs"))
     elif cache is not None:
-        # decode (S == 1) writes row cache_index; prefill the prompt at 0
+        # decode (S == 1) and a suffix prefill write at cache_index; a
+        # prefill the prompt at 0
         kc, vc = cache["k"], cache["v"]
-        idx = cache_index if (cache_index is not None and S == 1) else 0
+        idx = cache_index if (cache_index is not None
+                              and (S == 1 or prefix_attend)) else 0
         kc[:, idx:idx + S] = k.to(kc.dtype)
         vc[:, idx:idx + S] = v.to(vc.dtype)
         if S == 1:
             o = decode_attention(q, kc, vc, cache_index, window=window,
                                  softcap=cfg.logit_softcap)
+        elif prefix_attend:
+            o = prefix_prefill_attention(q, kc, vc, positions, window=window,
+                                         softcap=cfg.logit_softcap)
         else:
             o = blockwise_attention(q, k, v, causal=causal, window=window,
                                     softcap=cfg.logit_softcap)

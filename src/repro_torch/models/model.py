@@ -78,13 +78,17 @@ class Model:
     # serving
     @torch.no_grad()
     def prefill(self, params: Params, batch: Dict[str, torch.Tensor],
-                caches: Params) -> Tuple[torch.Tensor, Params]:
+                caches: Params, cache_index: int = 0,
+                prefix_attend: bool = False) -> Tuple[torch.Tensor, Params]:
         """Process the prompt into ``caches`` (in place); returns
-        (last-token logits (B, V), caches)."""
+        (last-token logits (B, V), caches).  ``prefix_attend``: the tokens
+        are a prompt's suffix, written at ``cache_index`` over the prefix
+        rows already in ``caches`` (a prefix-sharing admission)."""
         ctx = self.ctx("prefill")
         h, caches = tfm.forward_serve(params, ctx, batch["tokens"],
                                       batch["positions"], caches,
-                                      cache_index=0)
+                                      cache_index=cache_index,
+                                      prefix_attend=prefix_attend)
         return tfm.unembed(params, ctx, h[:, -1:, :])[:, 0, :], caches
 
     @torch.no_grad()

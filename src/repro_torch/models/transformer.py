@@ -90,6 +90,7 @@ def run_sublayer(kind: str, params: dict, ctx: ModelContext,
                  x: torch.Tensor, positions: torch.Tensor,
                  cache: Optional[dict] = None,
                  cache_index: Optional[int] = None,
+                 prefix_attend: bool = False,
                  paged: Optional[dict] = None
                  ) -> Tuple[torch.Tensor, Optional[dict]]:
     """One dense, shared (the hybrid's transformer block: the dense code
@@ -109,7 +110,7 @@ def run_sublayer(kind: str, params: dict, ctx: ModelContext,
     h = apply_norm(cfg, params["ln1"], x)
     a, cache = attention_block(params["attn"], ctx, h, positions,
                                cache=cache, cache_index=cache_index,
-                               paged=paged)
+                               prefix_attend=prefix_attend, paged=paged)
     if cfg.parallel_block:
         return x + a + mlp_block(params["mlp"], ctx, h), cache  # cohere
     x = x + a
@@ -218,13 +219,17 @@ def forward_train(params: Params, ctx: ModelContext, tokens: torch.Tensor,
 
 def forward_serve(params: Params, ctx: ModelContext, tokens: torch.Tensor,
                   positions: torch.Tensor, caches: Params, cache_index: int,
+                  prefix_attend: bool = False,
                   paged: Optional[dict] = None) -> Tuple[torch.Tensor, Params]:
     """Prefill (S > 1) / decode (S == 1) against stacked caches.
 
     ``caches``: ``{"sub_j": {leaf: (n_groups, ...)}}``; layer ``l`` works
     on the views ``leaf[l]`` and writes them in place.  With ``paged`` the
-    leaves are the page pool (see ``attention_block``).  Returns the final
-    hidden state and ``caches``."""
+    leaves are the page pool (see ``attention_block``).
+    ``prefix_attend`` runs a prefix-sharing suffix prefill: the S > 1
+    tokens are the prompt's tail, written at ``cache_index`` and attending
+    over the cache rows below it too.  Returns the final hidden state and
+    ``caches``."""
     cfg = ctx.cfg
     group, n_groups = arch_group(cfg)
     x = embed_tokens(params, ctx, tokens)
@@ -235,7 +240,8 @@ def forward_serve(params: Params, ctx: ModelContext, tokens: torch.Tensor,
             c = caches.get(f"sub_{j}")
             c = {k: v[layer] for k, v in c.items()} if c is not None else None
             x, _ = run_sublayer(kind, p, ctx, x, positions, cache=c,
-                                cache_index=cache_index, paged=paged)
+                                cache_index=cache_index,
+                                prefix_attend=prefix_attend, paged=paged)
     return apply_norm(cfg, params["final_norm"], x), caches
 
 

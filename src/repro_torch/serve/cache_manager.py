@@ -22,6 +22,9 @@ Two storage models share that contract:
   A hybrid model's recurrent (conv / ssm) state has no sequence axis to
   page: it stays one row per slot beside the pool (``slot_tree``) and is
   parked whole on preemption, as the monolithic manager parks a slot.
+  With ``prefix_share`` a radix index over page-sized token chunks lets
+  an admission bind the pages of a cached prompt prefix read-only and
+  fork the page where it diverges (copy-on-write).
 
 Storage is updated in place (the reference donates its buffers to jit).
 """
@@ -48,6 +51,32 @@ from repro_torch.serve.paging import PageTable, SharedPayload
 from repro_torch.serve.session import Session, SessionState
 
 log = logging.getLogger(__name__)
+
+
+@dataclasses.dataclass
+class PrefixMatch:
+    """A new prompt matched against the prefix index.
+
+    ``pids`` are fully matched pages the admission binds read-only (a
+    refcount bump: no copy, no prefill of their rows); ``fork_pid`` is the
+    donor frame whose first ``rows - len(pids) * page_size`` rows match —
+    copied into a private frame before the suffix prefill writes it.
+    ``rows`` is the prompt rows covered: the suffix prefill starts there."""
+
+    pids: List[int]
+    fork_pid: Optional[int]
+    rows: int
+
+    @property
+    def shared_pages(self) -> int:
+        """Pages bound read-only: the quota charge leaves them out."""
+        return len(self.pids)
+
+    @property
+    def write_from(self) -> int:
+        """First page column the suffix prefill may write (the forked page
+        is private; the shared ones route to the scratch frame)."""
+        return len(self.pids)
 
 
 @dataclasses.dataclass
@@ -149,9 +178,22 @@ class KVCacheManager:
         budgets only bind in paged mode)."""
         return 0
 
-    def prepare_slot(self, slot: int, sess: Session, rows: int) -> None:
+    def match_prefix(self, prompt) -> Optional[PrefixMatch]:
+        """Hook: look the prompt up in the prefix index (paged manager
+        with ``prefix_share`` only).  Read-only: admission calls it before
+        the quota check, so shared pages are not charged."""
+        return None
+
+    def note_prefilled(self, sess: Session, prompt,
+                       match: Optional[PrefixMatch] = None) -> None:
+        """Hook: an admission finished its prefill (paged: register its
+        full prompt pages in the prefix index)."""
+
+    def prepare_slot(self, slot: int, sess: Session, rows: int,
+                     match: Optional[PrefixMatch] = None) -> None:
         """Hook: back ``rows`` cache rows for a fresh admission (paged:
-        allocate the prompt's pages before the prefill)."""
+        allocate the prompt's pages before the prefill, binding
+        ``match``'s shared pages read-only first)."""
 
     def abort_prepare(self, sess: Session) -> None:
         """Hook: undo a failed :meth:`prepare_slot`."""
@@ -277,7 +319,17 @@ class PagedKVCacheManager(KVCacheManager):
     * A hybrid model's slot-shaped leaves (``slot_tree``: the SSM groups'
       conv / ssm state) sit beside the pool, one row per decode slot, and
       are parked whole through the spill tier when their session pauses.
-    * Prefix sharing (the reference's radix index) is not ported yet.
+    * ``prefix_share``: a radix index over page-sized token chunks.  An
+      admission binds the fully matched pages of a cached prefix
+      read-only (:meth:`~repro_torch.serve.paging.PageTable.share`) and
+      copies the page holding the first divergent token into a private
+      frame (copy-on-write) before its suffix prefill writes it.  Only a
+      model whose serving state is pure k/v can share: a recurrent slot
+      state (mamba2, zamba2) summarises the whole prefix and cannot be
+      grafted mid-sequence, so the flag turns itself off there, with a
+      warning.  A frame that dies (evicted or freed) leaves the index, so
+      the index holds only raw resident frames: shared pages resume raw,
+      never compressed, and a fork copies live bytes.
 
     A page's bytes never depend on the decode path: a compressed-resident
     page is inflated back into its raw frame before that frame is released
@@ -297,16 +349,31 @@ class PagedKVCacheManager(KVCacheManager):
                  decode_kernel: bool = False,
                  prefix_share: bool = False,
                  **kwargs):
-        if prefix_share:
-            raise NotImplementedError(
-                "prefix sharing (the radix prefix index) is not ported yet")
         self.page_size = int(page_size)
         self._pages_override = pages
         self.codec_for = codec_for or (lambda tenant: None)
         self.decode_kernel = bool(decode_kernel)
         self._sessions: Dict[int, Session] = {}       # uid -> owner
         self._codec_by_uid: Dict[int, Optional[str]] = {}
+        self.prefix_share = bool(prefix_share)
+        # radix index: a node maps a page's token tuple to [pid, child
+        # node]; a page's k/v depends only on the tokens up to its last
+        # row (causal attention), so the chain of chunks is the key
+        self._prefix_root: Dict[Tuple[int, ...], List[Any]] = {}
+        self._pid_nodes: Dict[int, Tuple[Dict, Tuple[int, ...]]] = {}
+        self.prefix_hits = 0           # pages bound read-only
+        self.prefix_forks = 0          # copy-on-write page copies
+        self.prefix_rows_reused = 0    # prompt rows not prefilled
+        self.prefix_rows_prompted = 0  # prompt rows seen
         super().__init__(model, batch, max_len, **kwargs)
+        cfg = model.cfg
+        if self.prefix_share and (
+                self._has_slot_leaves or cfg.is_encoder_decoder
+                or cfg.mrope_sections):
+            log.warning("prefix sharing disabled: model carries recurrent "
+                        "slot state (or enc-dec/mrope positions) that "
+                        "cannot be grafted mid-sequence")
+            self.prefix_share = False
 
     def _init_storage(self) -> None:
         if self.max_len % self.page_size:
@@ -322,9 +389,9 @@ class PagedKVCacheManager(KVCacheManager):
             m.cfg, num, self.page_size, m.dtype, m.device, batch=self.batch)
         self._has_slot_leaves = bool(tree.leaves(self.slot_tree))
         self.table = PageTable(num, self.page_size)
-        # a dying frame (evicted / freed) takes its compressed page back
-        # to raw bytes first (see the class docstring)
-        self.table.on_release = self._inflate_side_frame
+        # a dying frame (evicted / freed) leaves the prefix index and takes
+        # its compressed page back to raw bytes (see the class docstring)
+        self.table.on_release = self._on_pid_release
         self.scratch_id = num                     # pool holds num+1 frames
         self._pmap_dev: Optional[torch.Tensor] = None
         self._pmap_np: Optional[np.ndarray] = None
@@ -379,12 +446,107 @@ class PagedKVCacheManager(KVCacheManager):
         self._cframe_free.append(ci)
         self._pmap_dev = None
 
-    def prepare_slot(self, slot: int, sess: Session, rows: int) -> None:
-        """Back the prompt's rows with pages before the prefill.  Raises
+    def _on_pid_release(self, pid: int) -> None:
+        """Frame ``pid`` dies (evicted or freed): it leaves the prefix
+        index, and a compressed-resident page is inflated back into it."""
+        self._drop_prefix_pid(pid)
+        self._inflate_side_frame(pid)
+
+    # ------------------------------------------------------------------
+    # prefix sharing: radix index over page-sized token chunks
+    def _drop_prefix_pid(self, pid: int) -> None:
+        entry = self._pid_nodes.pop(pid, None)
+        if entry is None:
+            return
+        parent, key = entry
+        child = parent.get(key)
+        if child is not None and child[0] == pid:
+            # the subtree goes with it: a chain without its parent chain
+            # can never be matched
+            del parent[key]
+
+    def match_prefix(self, prompt) -> Optional[PrefixMatch]:
+        """Walk the index page by page along the prompt: fully matched
+        pages bind read-only; at the first divergence the resident sibling
+        sharing the most leading tokens becomes the fork donor.  At least
+        one prompt token is left to the suffix prefill (its logits sample
+        the first new token).  Read-only."""
+        if not self.prefix_share:
+            return None
+        toks = [int(t) for t in np.asarray(prompt).reshape(-1)]
+        ps = self.page_size
+        limit = len(toks) - 1
+        node = self._prefix_root
+        pids: List[int] = []
+        i = 0
+        while i + ps <= limit:
+            child = node.get(tuple(toks[i:i + ps]))
+            if child is None or not self.table.is_resident_pid(child[0]):
+                break
+            pids.append(child[0])
+            node = child[1]
+            i += ps
+        fork_pid, fork_rows = None, 0
+        for key, (pid, _) in node.items():
+            if not self.table.is_resident_pid(pid):
+                continue
+            depth, cap = 0, min(len(key), limit - i)
+            while depth < cap and key[depth] == toks[i + depth]:
+                depth += 1
+            if depth > fork_rows:
+                fork_rows, fork_pid = depth, pid
+        if not pids and not fork_rows:
+            return None
+        return PrefixMatch(pids=pids, fork_pid=fork_pid, rows=i + fork_rows)
+
+    def note_prefilled(self, sess: Session, prompt,
+                       match: Optional[PrefixMatch] = None) -> None:
+        """Register the admission's full prompt pages in the index (shared
+        pages are there already under the donor's pid; a forked page
+        registers as a sibling chain) and count the rows reused."""
+        if not self.prefix_share:
+            return
+        toks = [int(t) for t in np.asarray(prompt).reshape(-1)]
+        self.prefix_rows_prompted += len(toks)
+        if match is not None:
+            self.prefix_rows_reused += match.rows
+        ps = self.page_size
+        pids = self.table.resident_pids(sess.uid)
+        node = self._prefix_root
+        for p in range(len(toks) // ps):
+            key = tuple(toks[p * ps:(p + 1) * ps])
+            child = node.get(key)
+            if child is None:
+                pid = pids[p]
+                if pid is None:
+                    break
+                child = [pid, {}]
+                node[key] = child
+                self._pid_nodes[pid] = (node, key)
+            node = child[1]
+
+    def prepare_slot(self, slot: int, sess: Session, rows: int,
+                     match: Optional[PrefixMatch] = None) -> None:
+        """Back the prompt's rows with pages before the prefill: with a
+        prefix ``match`` its pages bind read-only first and the fork donor
+        is copied into a fresh private frame (if that allocation evicted
+        the donor itself, the frame still holds the donor's bytes and the
+        copy is the identity).  Raises
         :class:`~repro_torch.serve.paging.PageError` when the pool cannot
-        cover them (every page hot) — the Engine then aborts and defers."""
+        cover them (every page hot) — the Engine then aborts (undoing the
+        shared binds) and defers."""
         self._sessions[sess.uid] = sess
         self._codec_by_uid[sess.uid] = self.codec_for(sess.tenant)
+        if match is not None:
+            for pid in match.pids:
+                self.table.share(sess.uid, pid)
+            if match.fork_pid is not None:
+                new_pid = self.table.alloc(sess.uid, self._evict_cb)
+                tfm.page_insert(self.pool,
+                                tfm.page_slice(self.pool, match.fork_pid),
+                                new_pid)
+                self.prefix_forks += 1
+            self.prefix_hits += len(match.pids)
         self.table.ensure(sess.uid, rows, self._evict_cb)
 
     def abort_prepare(self, sess: Session) -> None:
@@ -644,6 +806,16 @@ class PagedKVCacheManager(KVCacheManager):
         report["page_decodes"] = {
             "refetched": self._decoded_refetches,
             "inflated": self._cframe_inflates,
+        }
+        prompted = self.prefix_rows_prompted
+        report["prefix"] = {
+            "enabled": self.prefix_share,
+            "hits": self.prefix_hits,
+            "forks": self.prefix_forks,
+            "rows_reused": self.prefix_rows_reused,
+            "rows_prompted": prompted,
+            "hit_rate": (self.prefix_rows_reused / prompted
+                         if prompted else 0.0),
         }
         return report
 

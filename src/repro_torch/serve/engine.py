@@ -13,9 +13,11 @@ model's prefill/decode compute and the sampler:
 
 Multi-tenant admission (``quota=``) is enforced here: a session is charged
 its worst-case page reservation against its tenant's quota before it may
-take a slot.  This is the colocated engine (prefill and decode in one
-lifecycle); the reference's disaggregated roles and prefix sharing come
-with later slices.
+take a slot — less the pages it binds read-only from the prefix cache
+(``prefix_share``), which another session already paid for.  Such an
+admission prefills only its prompt's suffix, over the shared and forked
+pages.  This is the colocated engine (prefill and decode in one
+lifecycle); the reference's disaggregated roles come with a later slice.
 
 Decode runs one batched step per unique cache length (the paged kernel
 takes one ``cache_index`` per call).  With ``decode_kernel`` the step's
@@ -40,7 +42,8 @@ from repro_torch import tree
 from repro_torch.models import transformer as tfm
 from repro_torch.models.model import Model
 from repro_torch.serve.cache_manager import (KVCacheManager,
-                                             PagedKVCacheManager)
+                                             PagedKVCacheManager,
+                                             PrefixMatch)
 from repro_torch.serve.paging import PageError
 from repro_torch.serve.quota import QuotaManager, TenantQuota
 from repro_torch.serve.scheduler import Scheduler, build_scheduler
@@ -112,7 +115,8 @@ class Engine:
                 prefix_share=prefix_share, **cache_kwargs)
         else:
             if prefix_share:
-                raise ValueError("prefix_share needs paged KV (page_size)")
+                log.warning("prefix sharing reuses whole pages and needs "
+                            "paged KV (page_size): serving unshared")
             self.cache = KVCacheManager(model, batch, max_len, spill=spill,
                                         **cache_kwargs)
         self.batch, self.max_len = self.cache.batch, self.cache.max_len
@@ -152,6 +156,29 @@ class Engine:
                                  slot)
         else:
             tfm.merge_slot_cache(cache.caches, one, slot)
+        return logits[0]
+
+    def _prefill_suffix(self, toks: torch.Tensor, sess: Session,
+                        match: PrefixMatch) -> torch.Tensor:
+        """A prefix-sharing admission's prefill: the session's page row
+        gathered into a one-slot view (the matched rows are there: shared
+        pages and the forked copy), only the prompt's tail computed —
+        written at ``match.rows``, attending over the view — and only the
+        page columns from ``match.write_from`` on scattered back; the
+        shared columns route to the scratch frame, so no writer touches a
+        shared frame."""
+        cache = self.cache
+        row = torch.as_tensor(cache.page_row_for(sess), device=self.device)
+        one = tfm.gather_pages(cache.pool, cache.slot_tree, row)
+        S = toks.shape[1]
+        pos = self._positions(S - match.rows, match.rows, 1)
+        logits, one = self.model.prefill(
+            self.params, {"tokens": toks[:, match.rows:], "positions": pos},
+            one, cache_index=match.rows, prefix_attend=True)
+        cols = torch.arange(row.shape[1], device=self.device)
+        tfm.scatter_pages(cache.pool, one,
+                          torch.where(cols >= match.write_from, row,
+                                      cache.scratch_id))
         return logits[0]
 
     def _saved_outside(self, caches, mask: np.ndarray,
@@ -369,28 +396,38 @@ class Engine:
                 continue
             pages_needed = self.cache.session_pages(
                 len(prompt), sess.request.max_new_tokens)
+            # match before the quota gate: pages bound read-only from the
+            # prefix cache are not charged (at least one page stays
+            # private: the suffix prefill writes it)
+            match = self.cache.match_prefix(prompt)
+            charge = pages_needed - (match.shared_pages if match else 0)
             if self.quota is not None:
-                if not self.quota.admissible(sess.tenant, pages_needed):
+                if not self.quota.admissible(sess.tenant, charge):
                     log.warning("req %d: demand (%d pages) can never fit "
                                 "tenant %r quota — rejected",
-                                sess.uid, pages_needed, sess.tenant)
+                                sess.uid, charge, sess.tenant)
                     self._retire(sess, FINISH_QUOTA)
                     continue
-                if not self.quota.can_admit(sess.tenant, pages_needed):
+                if not self.quota.can_admit(sess.tenant, charge):
                     deferred.append(sess)
                     continue
             try:
-                self.cache.prepare_slot(slot, sess, max(1, len(prompt)))
+                self.cache.prepare_slot(slot, sess, max(1, len(prompt)),
+                                        match=match)
             except PageError:
                 self.cache.abort_prepare(sess)
                 deferred.append(sess)
                 break                   # pool too hot; retry next step
             if self.quota is not None:
-                self.quota.charge(sess.uid, sess.tenant, pages_needed)
+                self.quota.charge(sess.uid, sess.tenant, charge)
             toks = torch.as_tensor(prompt, dtype=torch.long,
                                    device=self.device)[None, :]
-            logits = self._prefill(toks, slot, sess)
+            if match is not None:
+                logits = self._prefill_suffix(toks, sess, match)
+            else:
+                logits = self._prefill(toks, slot, sess)
             self.cache.bind(slot, sess, toks.shape[1])
+            self.cache.note_prefilled(sess, prompt, match)
             nxt = self._sample(logits[None])[0]
             sess.emit(nxt)
             if nxt == sess.request.eos_id:

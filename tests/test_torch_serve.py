@@ -180,9 +180,16 @@ def test_cuda_device_without_cuda_raises():
 
 
 def test_prefix_share_not_ported(models):
+    """Prefix sharing is ported now (tests/test_torch_prefix.py holds it to
+    the reference): a paged engine takes the flag and reports its prefix
+    counters; monolithic slots have no pages to share and serve
+    unshared."""
     _, _, tm, tp = models
-    with pytest.raises(NotImplementedError):
-        Engine(tm, tp, batch=1, max_len=16, page_size=8, prefix_share=True)
+    eng = Engine(tm, tp, batch=1, max_len=16, page_size=8, prefix_share=True)
+    assert eng.cache.prefix_share
+    assert eng.traffic_report()["prefix"]["enabled"]
+    eng = Engine(tm, tp, batch=1, max_len=16, prefix_share=True)
+    assert not eng.cache.paged
 
 
 def test_serve_cli_smoke():
