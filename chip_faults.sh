@@ -27,10 +27,16 @@ ZAMBA='check_zamba2_serve_logits()'
 # GQA (32 heads over 32 kv heads), so the *_kv_head_mod plants read the
 # same kv head there and are not run against it
 ZAMBA_TRAIN='check_train_zamba2_vs_plain()'
-# phase 10's comparison (full-width h2o-danube-1.8b, prefix sharing on
-# against off, float32 and bfloat16, and no write into a shared frame)
+# phase 10's comparison (h2o-danube-1.8b at 8 of its 24 layers: prefix
+# sharing on against off, float32 and bfloat16, no write into a shared
+# frame, and the int8 sharing-on run against its float32 twin and against
+# the raw sharing-on run)
 DANUBE='check_danube_prefix_logits()'
-SHOW='main path logits|reciprocal probe|paged_decode_attention (float|bfloat)|ssd_scan rounding probe|flash_attention_fwd (float|bfloat)|training, |bit-exact|  ssd_scan (float|bfloat)|(mamba2|zamba2) logits|    (scan kernel|paged decode|plain bf16)|gemm_os (float|bfloat)|gemm path|state of the slots|    limits: float32|    limits \(max|    sharing |danube, sharing on|FAILED'
+# phase 11's serving comparison (mixtral-8x7b at 8 layers, the paged
+# decode on its kernel against its plain version in float32 and bfloat16,
+# every MoE block on the first run's routing)
+MIXTRAL='check_mixtral_serve_logits()'
+SHOW='main path logits|reciprocal probe|paged_decode_attention (float|bfloat)|ssd_scan rounding probe|flash_attention_fwd (float|bfloat)|training, |bit-exact|  ssd_scan (float|bfloat)|(mamba2|zamba2|mixtral) logits|    (scan kernel|paged decode|plain bf16)|gemm_os (float|bfloat)|gemm path|state of the slots|    limits: |    limits \(max|    sharing |    int8, |danube at |MoE blocks|FAILED'
 ONLY=" $* "
 
 fault() {   # name, file (from the checkout's root), sed expression, checks
@@ -59,7 +65,7 @@ import chip_smoke as c; c.$check" 2>&1) |
 # the tensor cores, float32 on the CUDA cores)
 fault scale_of_frame0 $CSRC/paged_attention.cu \
   's/sk = a.ks\[ci\]; sv = a.vs\[ci\];/sk = a.ks[0]; sv = a.vs[0];/; s/const float sk = a.ks\[ci\], sv = a.vs\[ci\];/const float sk = a.ks[0], sv = a.vs[0];/' \
-  "$MAIN $ZAMBA"
+  "$MAIN $ZAMBA $MIXTRAL"
 # K and V side-pool scales swapped (both paths)
 fault kv_scales_swapped $CSRC/paged_attention.cu \
   's/sk = a.ks\[ci\]; sv = a.vs\[ci\];/sk = a.vs[ci]; sv = a.ks[ci];/; s/const float sk = a.ks\[ci\], sv = a.vs\[ci\];/const float sk = a.vs[ci], sv = a.ks[ci];/' \
@@ -226,4 +232,11 @@ fault prefix_suffix_in_flight src/repro_torch/models/attention.py \
 # columns too (the same bytes: only the write itself shows)
 fault prefix_scatter_shared src/repro_torch/serve/engine.py \
   's/torch.where(cols >= match.write_from, row,/torch.where(cols >= 0, row,/' \
+  "$DANUBE"
+# int8 spill: a page adopted compressed into the side pool has its scale
+# stored in the neighbouring frame's slot, so the decode reads it with its
+# neighbour's scale (sharing on and off alike: the int8 sharing-on run's
+# float32 twin shares the fault, the raw sharing-on run does not)
+fault side_scale_of_neighbour src/repro_torch/serve/cache_manager.py \
+  's/            store\[:, ci\] = scale/            store[:, (ci + 1) % store.shape[1]] = scale/' \
   "$DANUBE"

@@ -13,8 +13,13 @@ Phases (each failure exits non-zero; nothing is caught and carried on):
               at head_dim 80 with 32 heads over 8 kv heads, the scan at 80 heads of
               state 64 in a prefill and at 8 x 1024 tokens in training,
               the int8 codec on 80-column page rows, the fp8 codec on an
-              8192 x 2560 stash, the flash forward at head_dim 80) and
-              times kernel, plain version, the
+              8192 x 2560 stash, the flash forward at head_dim 80;
+              mixtral-8x7b's: the paged decode at head_dim 128 with 32
+              heads over 8, with and without a window that masks, the
+              codecs on its 8-layer page, the fp8 codec on its
+              8192 x 4096 stash, the flash forward at its training
+              shape, d 128 over 8 kv heads) and times kernel, plain
+              version, the
               least time the card could take (bound) and, for the paged
               decode, the flash forward and the GEMM, one PyTorch library
               call as a yardstick.  The flash forward, the GEMM, the scan
@@ -88,12 +93,14 @@ Phases (each failure exits non-zero; nothing is caught and carried on):
               pinned host memory and in-place kernel decode, each slot's
               Mamba2 conv / ssm state beside the pool, parked whole under
               fair preemption; prompts of 128, 256 and 384 tokens.  The
-              path runs four times on 8 of the 16 requests — paged decode
-              and scan plain, then on their kernels, in bfloat16 and with
-              the weights in float32, every run after the first on the
+              path runs four times on 8 of the 16 requests at 18 of the
+              54 Mamba2 blocks (3 of the 9 sites) — paged decode and scan
+              plain, then on their kernels, in bfloat16 and with the
+              weights in float32, every run after the first on the
               first's tokens; each still evicts pages, resumes some
               compressed and parks slots — and every sampling call's
-              logits must agree; then once more on all 16, counted: every
+              logits must agree; then once more on all 16 at full depth,
+              counted: every
               request finished, the scan launched once per
               Mamba2 block per admission, the paged decode once per site
               per decode call, the codec once a page, stash and fetch
@@ -119,19 +126,45 @@ Phases (each failure exits non-zero; nothing is caught and carried on):
               of 384 / 448 tokens whose first 328 are shared, so later
               sessions bind 20 pages read-only, fork the 21st and prefill
               only their suffix; an overcommitted pool with int8 spill to
-              pinned host memory and in-place kernel decode.  The path
-              runs four times, sharing on and off, in bfloat16 and with
-              the weights in float32, every run after the first on the
-              first's tokens, and every sampled token's logits, keyed by
-              (request, token index), must agree; no run may write a
-              shared frame.  Then once more, counted: every request
+              pinned host memory and in-place kernel decode.  At 8 of the
+              24 layers the path runs eight times, raw and int8 spill,
+              sharing on and off, in bfloat16 and with the weights in
+              float32, every run after the first on the first's tokens,
+              and every sampled token's logits, keyed by (request, token
+              index), must agree: sharing on against off (raw), and the
+              int8 sharing-on run against its float32 twin and against
+              the raw sharing-on run, both to a limit from the int8
+              sharing-off pair; no run may write a shared frame.  Then
+              once more at full depth, counted: every request
               finished, prefix hits and forks, pages evicted and adopted
               compressed, the paged decode once per layer per decode call,
               the codec once a page.
+11. MoE     — full-width mixtral-8x7b (bf16, random weights from a seed;
+    mixtral    8 experts top-2, GQA at head_dim 128), cut in depth (32
+              layers are ~93 GB).  Serves 8 layers through
+              ``repro_torch.launch.serve``: an overcommitted pool with
+              int8 spill and in-place kernel decode, prompts of 256 and
+              384 tokens whose prefills drop tokens at expert capacity.
+              Four runs on 8 of the 16 requests — the paged decode plain
+              and on the kernel, in bfloat16 and with the weights in
+              float32, every run after the first on the first's tokens
+              and MoE routing — and every sampling call's logits must
+              agree; then all 16, counted: 64 tokens a request, the paged
+              decode once per layer per decode call, the codec once a
+              page, equal stash and fetch bytes, pages evicted and
+              resumed compressed, the prefill drops and each expert's
+              tokens printed.  Trains 2 layers through
+              ``repro_torch.launch.train`` for 5 steps of 8 x 1024 tokens
+              (host tier, fp8 stash): finite losses, a finite aux loss
+              above 0, the tier's bytes, the launches a step; profiles two
+              more steps; then 3 steps twice in float32, the flash forward
+              plain and on the kernel, every loss and every step-1
+              gradient leaf (the router's included) compared.
 
-The line before the last is a JSON object with one entry per kernel (its
-launches summed over the counted runs of phases 3 to 10, and per run); the
-last line is ``{"ok": true, "device": {...}}``.
+Each phase prints its wall time, and the script its whole.  The line
+before the last is a JSON object with one entry per kernel (its launches
+summed over the counted runs of phases 3 to 11, and per run); the last
+line is ``{"ok": true, "device": {...}}``.
 """
 import gc
 import json
@@ -294,6 +327,13 @@ ZAMBA_STATE_BYTES = ZAMBA_LAYERS * (80 * 64 * 64 + 3 * 5248) * 2
 # run serves all 16
 ZAMBA_LOGIT_F32_SHARE = 0.02
 ZAMBA_CMP_ARGS = ZAMBA_ARGS + ["--requests", "8"]
+# the four comparison runs at 18 of the 54 Mamba2 blocks: the shared
+# block's period of 6 kept, 3 of its 9 sites (the readings above are the
+# full depth's; the counted run stays at full depth).  At 18 on an H100
+# (700 W): bf16 vs f32 2.84 / 0.502, the kernels 0.0021 / 0.00036 in
+# float32 (limit 0.057 / 0.010) and 0.88 / 0.149 in bfloat16; frame 0's
+# scales read 2.46 / 0.439 in float32
+ZAMBA_CMP_LAYERS = 18
 
 # zamba2 training main path: 63 sub-layers (54 Mamba2 blocks and the
 # shared block at 9 sites), 8 x 1024 tokens, host tier with the fp8 stash
@@ -356,6 +396,68 @@ _CODEC = DANUBE_ARGS.index("--page-codec")
 DANUBE_CMP_ARGS = DANUBE_ARGS[:_CODEC] + DANUBE_ARGS[_CODEC + 2:]
 DANUBE_CMP_UNSHARED_ARGS = DANUBE_CMP_ARGS[:-1]
 DANUBE_F32_SHARE, DANUBE_BF16_SHARE = 0.02, 1.5
+# The comparison runs take 8 of the 24 layers (the readings above are the
+# full depth's), every limit from runs at that depth.  Besides the raw
+# runs, the int8 spill's: sharing on and off, bfloat16 and float32, on one
+# page schedule per sharing setting (the schedule depends only on
+# lengths), so a bf16 run and its f32 twin quantise the same pages.  The
+# int8 sharing-on run is held (a) to its float32 twin and (b), in
+# float32, to the raw sharing-on run (the codec's own effect), both to
+# DANUBE_INT8_SHARE times the int8 sharing-off pair's bf16 vs f32
+# distance.  On an H100 (700 W) at 8 layers that distance read 0.156 /
+# 0.0274 (max, worst row's mean), (a) 0.121 / 0.0207 and (b) 0.073 /
+# 0.0131.  (a) alone cannot see a fault that both dtypes share: a
+# side-pool frame read with its neighbour's scale moved (a) to 0.176 /
+# 0.0319 (the limit grew with it, to 1.5 x 0.188 / 0.0347) and (b) to
+# 1.75 / 0.315
+DANUBE_CMP_LAYERS = 8
+DANUBE_INT8_ARGS, DANUBE_INT8_UNSHARED_ARGS = DANUBE_ARGS, DANUBE_ARGS[:-1]
+DANUBE_INT8_SHARE = 1.5
+
+# mixtral-8x7b (phase 11): full width (d 4096, 32 query heads of 128 over 8
+# kv heads, 8 experts top-2 of d_ff 14336, window 4096), cut in depth: its
+# 32 layers are ~93 GB in bf16.  Serving at 8 layers (~23.7 GB; ~47 GB in
+# float32): 16 requests of 256 / 384 prompt tokens + 64 new over 6 slots
+# of 512 rows, an overcommitted pool of 96 pages of 16, int8 spill to
+# pinned host memory, in-place kernel decode, fair preemption every 16
+# tokens.  A 384-token prefill routes 768 assignments into 8 experts of
+# capacity 120, so tokens drop
+MIXTRAL_SERVE_LAYERS, MIXTRAL_PAGES = 8, 96
+MIXTRAL_ARGS = ["--arch", "mixtral-8x7b", "--device", "cuda", "--seed", "0",
+                "--batch", "6", "--max-len", "512", "--page-size", "16",
+                "--pages", str(MIXTRAL_PAGES), "--requests", "16",
+                "--prompt-len", "256,384", "--new-tokens", "64",
+                "--scheduler", "fair", "--quantum", "16", "--spill", "host",
+                "--page-codec", "int8", "--decode-kernel"]
+# four comparison runs on 8 of the requests, as phase 8's: the paged
+# decode plain and on the kernel, in bfloat16 and with the weights in
+# float32, every run after the first forced onto the first's tokens and
+# every MoE block onto the first's routing (a routing decision that flips
+# between two runs moves the logits by about a logit's size, so unforced
+# flips would swamp the limits).  float32 kernel vs plain is held to
+# MIXTRAL_LOGIT_F32_SHARE of the plain bf16 vs f32 distance, bfloat16 to
+# all of it
+MIXTRAL_LOGIT_F32_SHARE = 0.02
+MIXTRAL_CMP_ARGS = MIXTRAL_ARGS + ["--requests", "8"]
+# training at 2 layers: bf16 params and grads and float32 AdamW moments
+# come to ~38 GB; 5 steps of 8 x 1024 tokens, host tier, fp8 stash.  Then
+# 3 steps twice in float32, the flash forward plain and on the kernel,
+# every loss and every step-1 gradient leaf (the router's included) held
+# to phase 7's float32 limits
+MIXTRAL_TRAIN_LAYERS, MIXTRAL_TRAIN_STEPS = 2, 5
+MIXTRAL_TRAIN_ARGS = ["--arch", "mixtral-8x7b", "--device", "cuda", "--seed",
+                      "0", "--batch", str(TRAIN_BATCH), "--seq",
+                      str(TRAIN_SEQ), "--steps", str(MIXTRAL_TRAIN_STEPS),
+                      "--lr", "3e-4", "--policy", "host", "--compress",
+                      "fp8", "--log-every", "1"]
+MIXTRAL_TRAIN_F32_TOL = {"loss": 5e-3, "leaf_norm": 5e-2}
+
+
+def cut(arch: str, layers: int):
+    """``arch``'s configuration at full width, cut to ``layers`` layers."""
+    import dataclasses
+    from repro_torch.configs import ARCHS
+    return dataclasses.replace(ARCHS[arch], num_layers=layers)
 
 
 def fail(msg: str) -> None:
@@ -442,20 +544,22 @@ def paged_case(dev, dtype, *, B, H, K, hd, page, pp, P, C, seed):
                                  v_scale=vs)
 
 
-def paged_bytes_ops(args, idx):
+def paged_bytes_ops(args, idx, window=0):
     """Bytes the decode must move (q, page map, the live pages' K/V — int8
-    plus a scale for side-pool pages —, out) and its QK/PV operations."""
+    plus a scale for side-pool pages —, out) and its QK/PV operations;
+    with ``window`` only the pages and rows inside it."""
     q, kp, _, pm = args
     B, _, H, hd = q.shape
     P, page, K, _ = kp.shape
-    live = pm[:, : idx // page + 1].reshape(-1)
+    first = max(0, idx - window + 1) if window > 0 else 0
+    live = pm[:, first // page: idx // page + 1].reshape(-1)
     n_comp = int((live >= P).sum())
     n_raw = live.numel() - n_comp
     per_page = page * K * hd
     nbytes = (2 * q.numel() * q.element_size() + pm.numel() * 4
               + 2 * n_raw * per_page * kp.element_size()
               + 2 * n_comp * (per_page + 4))
-    ops = 4.0 * B * H * hd * (idx + 1)
+    ops = 4.0 * B * H * hd * (idx + 1 - first)
     return nbytes, ops
 
 
@@ -490,16 +594,19 @@ def paged_rounding_probe(dev, dtype):
     return [t.to(dtype) for t in (q, kp, vp)] + [pm], side, 8 * page - 1
 
 
-def paged_library(args, side, idx):
+def paged_library(args, side, idx, window=0):
     """Yardstick of the paged decode (not used by the port): inflate the
     page map, int8 side frames included, and one SDPA call over the rows
-    up to ``idx``."""
+    up to ``idx`` (inside ``window``)."""
     from repro_torch.kernels import ref
     q, kp, vp, pm = args
     k = ref.inflate_pages_ref(kp, pm, side["kq_pool"], side["k_scale"])
     v = ref.inflate_pages_ref(vp, pm, side["vq_pool"], side["v_scale"])
-    mask = (torch.arange(k.shape[1], device=q.device) <= idx)[None, None,
-                                                                 None]
+    pos = torch.arange(k.shape[1], device=q.device)
+    mask = pos <= idx
+    if window > 0:
+        mask &= pos > idx - window
+    mask = mask[None, None, None]
     return torch.nn.functional.scaled_dot_product_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
         attn_mask=mask, enable_gqa=True)
@@ -575,6 +682,17 @@ def check_paged(dev, results, others):
                    dict(B=6, H=32, K=8, hd=80, page=16, pp=32,
                         P=DANUBE_PAGES + 1, C=DANUBE_PAGES),
                    (0, 15, 16, 327, 328, 447, 510), seed=11)
+    # mixtral-8x7b's serving shape (phase 11): head_dim 128, 32 query heads
+    # over 8 kv heads (G 4), 6 slots of 32 pages, a pool and a side pool of
+    # MIXTRAL_PAGES frames, up to 511 rows visible; then a 256-row window
+    # that masks (mixtral's own 4096 masks nothing at 512 rows)
+    mixtral = dict(B=6, H=32, K=8, hd=128, page=16, pp=32,
+                   P=MIXTRAL_PAGES + 1, C=MIXTRAL_PAGES)
+    check_paged_at(dev, others, "mixtral", "hd 128, H 32 over K 8 (G 4)",
+                   mixtral, (0, 15, 16, 255, 256, 383, 510), seed=13)
+    check_paged_at(dev, others, "mixtral_window",
+                   "hd 128, H 32 over K 8, window 256", mixtral,
+                   (0, 255, 256, 300, 383, 510), seed=15, window=256)
 
 
 def codec_case(dev, dtype, R, C, seed):
@@ -745,15 +863,22 @@ def check_codec(dev, results, others):
             others["fp8_unpack@leaf"] = row
 
 
+#: the serving depth of a model the card serves cut (phase 11)
+SERVE_LAYERS = {"mixtral-8x7b": MIXTRAL_SERVE_LAYERS}
+
+
 def codec_page(dev, arch, num_pages, dtype, seed):
-    """A full-width page pool of ``arch`` as the serving path allocates it
-    (``transformer.paged_pool``: leaves (n_groups, num_pages + 1, 16, K,
-    hd)), k 10^4 times smaller than v, random; returns the pool's leaves
-    and the frame views (one a leaf) of pages 5 and 9."""
+    """A full-width page pool of ``arch`` (at its ``SERVE_LAYERS`` depth)
+    as the serving path allocates it (``transformer.paged_pool``: leaves
+    (n_groups, num_pages + 1, 16, K, hd)), k 10^4 times smaller than v,
+    random; returns the pool's leaves and the frame views (one a leaf) of
+    pages 5 and 9."""
     from repro_torch import tree
     from repro_torch.configs import ARCHS
     from repro_torch.models import transformer as tfm
-    pool, _ = tfm.paged_pool(ARCHS[arch], num_pages, 16, dtype, dev)
+    cfg = (cut(arch, SERVE_LAYERS[arch]) if arch in SERVE_LAYERS
+           else ARCHS[arch])
+    pool, _ = tfm.paged_pool(cfg, num_pages, 16, dtype, dev)
     leaves, _ = tree.flatten(pool)
     g = torch.Generator(device=dev).manual_seed(seed)
     for c, mag in zip(leaves, (1e-2, 1e2)):        # k, v
@@ -772,7 +897,9 @@ def check_codec_pages(dev, results, others):
     leaves of one page packed in one launch straight from a full-width
     pool's frame and decoded in one launch straight into another frame
     (smollm's page: 2 leaves of (30, 16, 3, 64); zamba2's: 2 of (9, 16,
-    32, 80); h2o-danube's: 2 of (24, 16, 8, 80)), bit-exact against the plain versions leaf by leaf, float32
+    32, 80); h2o-danube's: 2 of (24, 16, 8, 80); mixtral's at 8 layers: 2
+    of (8, 16, 8, 128)), bit-exact against the plain versions leaf by
+    leaf, float32
     and bfloat16 pools, for each codec; then, for each pack, half-way ties,
     ragged tails, row blocks whose 16-code chunks straddle two scales, all
     zeros and an absmax in the last slice, in both regimes (a row block
@@ -783,9 +910,9 @@ def check_codec_pages(dev, results, others):
     from repro_torch.kernels import offload_pack as kp
     packs = codec_packs()
     pages = {"smollm-135m": 64, "zamba2-2.7b": 96,
-             "h2o-danube-1.8b": DANUBE_PAGES}
+             "h2o-danube-1.8b": DANUBE_PAGES, "mixtral-8x7b": MIXTRAL_PAGES}
     tags = {"smollm-135m": "page", "zamba2-2.7b": "zamba2_page",
-            "h2o-danube-1.8b": "danube_page"}
+            "h2o-danube-1.8b": "danube_page", "mixtral-8x7b": "mixtral_page"}
     for dtype in (torch.float32, torch.bfloat16):
         for arch, num in pages.items():
             leaves, src, dst = codec_page(dev, arch, num, dtype, seed=num)
@@ -856,7 +983,7 @@ def check_codec_pages(dev, results, others):
     torch.cuda.synchronize()
     print("  fp8 / int8 / blocksparse pack and the unpack of a full-width "
           "page, one launch each, from and into the pool (smollm, zamba2, "
-          "danube; "
+          "danube, mixtral; "
           "f32, bf16; leaves 1e4 apart): bit-exact; and over "
           f"{n_cases} more (case, codec) pairs (ties at absmax 127, all "
           "zeros, an absmax in the last slice, both regimes; 1601 x 63, "
@@ -917,11 +1044,13 @@ def flash_rounding_probe(dev, dtype):
     return tuple(t.to(dtype) for t in (q, k, v))
 
 
-# flash forward cases (B, H, K, S, T, d, causal, window): smollm's
-# training shape, a window, ragged S; head_dim 80 (zamba2-2.7b) at its
+# flash forward cases (B, H, K, S, T, d, causal, window): mixtral-8x7b's
+# training shape (d 128, GQA 4, its 4096-row window); smollm's training
+# shape, a window, ragged S; head_dim 80 (zamba2-2.7b) at its
 # attention shape (H = K = 32), ragged with a window, non-causal with S !=
 # T, a short window; head dims 32 and 128
-FLASH_CASES = [(8, 9, 3, 1024, 1024, 64, True, 0),
+FLASH_CASES = [(8, 32, 8, 1024, 1024, 128, True, 4096),
+               (8, 9, 3, 1024, 1024, 64, True, 0),
                (8, 9, 3, 1024, 1024, 64, True, 256),
                (8, 9, 3, 1000, 1000, 64, True, 0),
                (2, 32, 32, 1024, 1024, 80, True, 0),
@@ -936,8 +1065,9 @@ def check_flash(dev, results, others):
     """The flash forward against its plain twin over ``FLASH_CASES`` and
     the rounding probe, in f32 (2e-5) and bf16 (2 bf16 ulps of each case's
     largest |out|); timed in bf16 beside SDPA at the training shape (B 8,
-    H 9, K 3, S = T = 1024, d 64, causal) and at zamba2's (B 8, H = K =
-    32, d 80)."""
+    H 9, K 3, S = T = 1024, d 64, causal), at zamba2's (B 8, H = K = 32,
+    d 80) and at mixtral's (B 8, H 32 over K 8, d 128, window 4096: SDPA's
+    causal mask is the same function at 1024 rows)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention_fwd
     g = torch.Generator(device=dev).manual_seed(6)
@@ -971,7 +1101,8 @@ def check_flash(dev, results, others):
         limit = "2e-5" if dtype == torch.float32 else "2 bf16 ulps of |out|"
         print(f"  flash_attention_fwd {str(dtype)[6:]}: max abs err "
               f"{err:.3g}, at most {share:.2f} of the limit ({limit}) over "
-              f"{len(FLASH_CASES)} cases (d 32, 64, 80, 128; causal, "
+              f"{len(FLASH_CASES)} cases (d 32, 64, 80, 128, mixtral's "
+              "8 x 32 over 8 x 1024 at d 128; causal, "
               "windowed, ragged, non-causal) and the p-rounding probe",
               flush=True)
 
@@ -982,20 +1113,22 @@ def check_flash(dev, results, others):
     print("  flash_attention_fwd bfloat16: thread blocks resident a SM by "
           f"head dim {({d: per_sm(d) for d in (32, 64, 80, 128)})}",
           flush=True)
-    for key, (B, H, K, S, d) in (("train", (8, 9, 3, 1024, 64)),
-                                 ("zamba2", (8, 32, 32, 1024, 80))):
+    for key, (B, H, K, S, d, window) in (
+            ("train", (8, 9, 3, 1024, 64, 0)),
+            ("zamba2", (8, 32, 32, 1024, 80, 0)),
+            ("mixtral", (8, 32, 8, 1024, 128, 4096))):
         q = torch.randn((B, H, S, d), generator=g, device=dev).bfloat16()
         k = torch.randn((B, K, S, d), generator=g, device=dev).bfloat16()
         v = torch.randn((B, K, S, d), generator=g, device=dev).bfloat16()
 
         def kernel():
-            return flash_attention_fwd(q, k, v, causal=True)
+            return flash_attention_fwd(q, k, v, causal=True, window=window)
 
         def library():
             return torch.nn.functional.scaled_dot_product_attention(
                 q, k, v, is_causal=True, enable_gqa=True)
 
-        nbytes, ops = flash_bytes_ops(q, k, True, 0)
+        nbytes, ops = flash_bytes_ops(q, k, True, window)
         b_ms, b_by = bound_ms(nbytes, ops, PEAK_BF16_FLOPS)
         row = dict(
             route="cuda",
@@ -1003,15 +1136,15 @@ def check_flash(dev, results, others):
             replaces="src/repro/kernels/flash_attention.py:109",
             max_abs_err=max_err[torch.bfloat16],
             ms=device_ms(kernel, iters=20),
-            plain_ms=device_ms(lambda: ref.flash_attention_ref(q, k, v),
-                               iters=3),
+            plain_ms=device_ms(lambda: ref.flash_attention_ref(
+                q, k, v, window=window), iters=3),
             bound_ms=b_ms, bound_by=b_by,
             library_ms=device_ms(library, iters=20),
             eager_ms=eager_ms(kernel, iters=20))
         if key == "train":
             results["flash_attention_fwd"] = row
         else:
-            others["flash_attention_fwd@zamba2"] = row
+            others[f"flash_attention_fwd@{key}"] = row
 
 
 def ssd_case(dev, dtype, b, S, H, G, seed, P=64, N=128, init=False):
@@ -1294,12 +1427,13 @@ def check_gemm_path():
     return launches
 
 
-def check_paged_at(dev, others, label, what, shape, idxs, seed):
+def check_paged_at(dev, others, label, what, shape, idxs, seed, window=0):
     """The paged decode at one model's serving shape (``shape``: the
-    arguments of ``paged_case``), with int8 side-pool frames, at each cache
-    index of ``idxs``: float32 to 2e-5, bfloat16 to two bf16 ulps of
-    |out|, as ``check_paged``; then timed in bfloat16 at the last index
-    into ``others["paged_decode_attention@<label>"]``."""
+    arguments of ``paged_case``; ``window``: the sliding window), with
+    int8 side-pool frames, at each cache index of ``idxs``: float32 to
+    2e-5, bfloat16 to two bf16 ulps of |out|, as ``check_paged``; then
+    timed in bfloat16 at the last index into
+    ``others["paged_decode_attention@<label>"]``."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.paged_attention import paged_decode_attention
     for dtype in (torch.float32, torch.bfloat16):
@@ -1307,9 +1441,11 @@ def check_paged_at(dev, others, label, what, shape, idxs, seed):
         share = 0.0
         for idx in idxs:
             for extra in ({}, side):
-                got = paged_decode_attention(*args, idx, **extra)
+                got = paged_decode_attention(*args, idx, window=window,
+                                             **extra)
                 torch.cuda.synchronize()
-                want = ref.paged_decode_attention_ref(*args, idx, **extra)
+                want = ref.paged_decode_attention_ref(*args, idx,
+                                                      window=window, **extra)
                 tol = 2e-5 if dtype == torch.float32 else bf16_ulps(want, 2)
                 e = (got.float() - want.float()).abs().max().item()
                 if not torch.isfinite(got.float()).all() or e > tol:
@@ -1322,17 +1458,18 @@ def check_paged_at(dev, others, label, what, shape, idxs, seed):
     idx = idxs[-1]
 
     def paged():
-        return paged_decode_attention(*args, idx, **side)
+        return paged_decode_attention(*args, idx, window=window, **side)
 
-    nbytes, ops = paged_bytes_ops(args, idx)
+    nbytes, ops = paged_bytes_ops(args, idx, window)
     b_ms, b_by = bound_ms(nbytes, ops, PEAK_BF16_FLOPS)
     others[f"paged_decode_attention@{label}"] = dict(
         route="cuda", source="src/repro_torch/kernels/csrc/paged_attention.cu",
         replaces="src/repro/kernels/paged_attention.py:189",
         max_abs_err=None, ms=device_ms(paged), plain_ms=device_ms(
-            lambda: ref.paged_decode_attention_ref(*args, idx, **side)),
+            lambda: ref.paged_decode_attention_ref(*args, idx, window=window,
+                                                   **side)),
         bound_ms=b_ms, bound_by=b_by,
-        library_ms=device_ms(lambda: paged_library(args, side, idx)),
+        library_ms=device_ms(lambda: paged_library(args, side, idx, window)),
         eager_ms=eager_ms(paged))
 
 
@@ -1427,9 +1564,17 @@ def check_zamba2_kernels(dev, others):
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         eager_ms=eager_ms(lambda: ssd_scan(x, dt, A, B, C, 128), iters=20))
     del x, dt, A, B, C
-    # ... and one stashed sub-layer input through the fp8 codec
-    g = torch.Generator(device=dev).manual_seed(9)
-    stash = (torch.randn((8 * 1024, 2560), generator=g, device=dev)
+    check_stash(dev, others, "zamba2", 2560, seed=9)
+
+
+def check_stash(dev, others, model, cols, seed):
+    """The fp8 pack and the unpack of one stashed sub-layer input of
+    ``model``, 8192 x ``cols`` bf16 as one row block (the training path's
+    8 x 1024 tokens), bit-exact against the plain versions, and timed."""
+    from repro_torch.kernels import offload_pack as kp
+    from repro_torch.kernels import ref
+    g = torch.Generator(device=dev).manual_seed(seed)
+    stash = (torch.randn((8 * 1024, cols), generator=g, device=dev)
              * 3).bfloat16()
     n, R = stash.numel(), stash.shape[0]
     q, sc = kp.fp8_pack(stash, block_rows=R)
@@ -1438,15 +1583,15 @@ def check_zamba2_kernels(dev, others):
             and torch.equal(sc, sr) and torch.equal(
                 kp.fp8_unpack(q, sc, block_rows=R, dtype=torch.bfloat16),
                 ref.fp8_unpack_ref(q, sc, R, torch.bfloat16))):
-        fail("fp8 pack / unpack of a zamba2 stash (8192 x 2560) not "
+        fail(f"fp8 pack / unpack of a {model} stash (8192 x {cols}) not "
              "bit-exact")
-    print("  fp8_pack and unpack of a zamba2 stash (8192 x 2560, bf16): "
+    print(f"  fp8_pack and unpack of a {model} stash (8192 x {cols}, bf16): "
           "bit-exact", flush=True)
-    others["fp8_pack@zamba2_stash"] = codec_row(
+    others[f"fp8_pack@{model}_stash"] = codec_row(
         lambda: kp.fp8_pack(stash, block_rows=R),
         lambda: ref.fp8_pack_ref(stash, R), n * 2 + n + 4, n,
         PACK_SITES["fp8_pack"])
-    others["fp8_unpack@zamba2_stash"] = codec_row(
+    others[f"fp8_unpack@{model}_stash"] = codec_row(
         lambda: kp.fp8_unpack(q, sc, block_rows=R),
         lambda: ref.fp8_unpack_ref(q, sc, R, torch.bfloat16),
         n + 4 + 2 * n, n, UNPACK_SITE)
@@ -1607,13 +1752,14 @@ def check_page_launches(label, report, launches):
 
 
 def check_train_path(label, argv, layers, steps, per_step,
-                     require_fall=True):
+                     require_fall=True, cfg=None):
     """A counted training run through ``repro_torch.launch.train``:
-    ``steps`` full-width steps, host tier, fp8 stash codec.  Losses
-    finite (and falling with ``require_fall``), the tier's traffic exact,
-    each kernel of ``per_step`` launched that many times a step."""
+    ``steps`` full-width steps (of ``cfg`` if given: a cut depth), host
+    tier, fp8 stash codec.  Losses finite (and falling with
+    ``require_fall``), the tier's traffic exact, each kernel of
+    ``per_step`` launched that many times a step."""
     from repro_torch.launch import train as train_cli
-    out, launches = counted(lambda: train_cli.main(argv))
+    out, launches = counted(lambda: train_cli.main(argv, cfg=cfg))
     print(f"  launches on the {label} path: {launches}", flush=True)
     hist = out["history"]
     losses = [h["loss"] for h in hist]
@@ -1710,9 +1856,11 @@ def free_device_memory() -> None:
     torch.cuda.empty_cache()
 
 
-def train_steps_with(argv, kinds, impl: str, n: int = 3, dtype=None):
+def train_steps_with(argv, kinds, impl: str, n: int = 3, dtype=None,
+                     cfg=None):
     """``n`` full-width training steps of the run ``argv`` describes (its
-    weights in ``dtype`` if given), from its weights and batches, with the
+    weights in ``dtype`` if given; ``cfg``: a cut depth), from its weights
+    and batches, with the
     kernels of ``kinds`` ("flash", "ssd") on ``impl``; returns the losses
     and the first step's gradients, moved to host memory (a full-width
     zamba2 float32 run holds 38 GB on the card; its kept gradients would
@@ -1729,7 +1877,7 @@ def train_steps_with(argv, kinds, impl: str, n: int = 3, dtype=None):
         select(impl)
     try:
         model, tc, source = train_cli.build_run(train_cli.parse_args(argv),
-                                                dtype=dtype)
+                                                dtype=dtype, cfg=cfg)
         state = init_state(model, tc)
         losses, first = [], None
         for t in range(n):
@@ -1867,13 +2015,20 @@ def check_blocksparse_path():
 
 
 # ---------------------------------------------------------------------------
-def serve_logits(argv, kinds, impl: str, dtype: str, forced=None):
+def serve_logits(argv, kinds, impl: str, dtype: str, forced=None,
+                 cfg=None, forced_routes=None):
     """Drive the serving path ``argv`` describes (fresh model from the same
-    seed, its weights in ``dtype``) with the kernels of ``kinds`` ("paged",
-    "ssd") on ``impl``.  Returns the logits and tokens of every sampling
-    call (after each admission's prefill and each decode step) and how
-    many engine steps decoded at more than one length.  With ``forced``
-    (another run's tokens, per call) the engine emits those.  Every
+    seed, its weights in ``dtype``; ``cfg``: a cut depth) with the kernels
+    of ``kinds`` ("paged", "ssd") on ``impl``.  Returns the logits and
+    tokens of every sampling call (after each admission's prefill and each
+    decode step) and how many engine steps decoded at more than one
+    length.  With ``forced`` (another run's tokens, per call) the engine
+    emits those.  Every MoE block's routing (``gather_idx``,
+    ``combine_w``) is kept in ``stats["routes"]``; with ``forced_routes``
+    (another run's) each block takes that run's instead, so two runs
+    differ only by arithmetic, and ``stats["flips"]`` counts the routed
+    rows (a prefill's tokens, a decode call's decoding slots; of
+    ``stats["rows"]``) whose own experts differed.  Every
     decode call is also checked to leave the recurrent (conv / ssm) state
     of the slots outside its length group bit for bit as it was
     (``stats["state_moved"]`` counts the calls that did not); ``stats``
@@ -1883,15 +2038,42 @@ def serve_logits(argv, kinds, impl: str, dtype: str, forced=None):
     from repro_torch import tree
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
+    from repro_torch.models import moe
     from repro_torch.models.transformer import PAGED_KEYS
     args = serve.parse_args(argv)
-    calls = []
-    stats = {"steps": 0, "mixed": 0, "decodes": 0, "state_moved": 0}
+    calls, routes = [], []
+    stats = {"steps": 0, "mixed": 0, "decodes": 0, "state_moved": 0,
+             "routes": routes, "flips": 0, "rows": 0}
+    live = []           # the decoding slots of the decode call in flight
     setters = [getattr(ops, f"set_{kind}_impl") for kind in kinds]
     for select in setters:
         select(impl)
+    route = moe.route
+
+    def spy_route(x2d, router, top_k, cap, num_experts):
+        gather_idx, combine_w, probs = route(x2d, router, top_k, cap,
+                                             num_experts)
+        if forced_routes is not None:
+            if len(routes) >= len(forced_routes) or \
+                    forced_routes[len(routes)][0].shape != gather_idx.shape:
+                fail("the forced run left the first run's MoE blocks")
+            want = forced_routes[len(routes)]
+            T = x2d.shape[0]
+            rows = live[0] if live else torch.arange(T, device=x2d.device)
+            own, theirs = (torch.zeros((T + 1, num_experts), dtype=torch.bool,
+                                       device=x2d.device).index_put_(
+                (g, torch.arange(num_experts, device=g.device)[:, None]
+                 .expand_as(g)), torch.tensor(True, device=g.device))
+                for g in (gather_idx, want[0]))
+            stats["flips"] += int((own[rows] != theirs[rows]).any(1).sum())
+            stats["rows"] += len(rows)
+            gather_idx, combine_w = want
+        routes.append((gather_idx, combine_w))
+        return gather_idx, combine_w, probs
+
+    moe.route = spy_route
     try:
-        eng = serve.build_engine(args, dtype=dtype)
+        eng = serve.build_engine(args, dtype=dtype, cfg=cfg)
         decode, sample, step = eng._decode, eng._sample, eng.step
 
         def spy_sample(logits):
@@ -1910,7 +2092,12 @@ def serve_logits(argv, kinds, impl: str, dtype: str, forced=None):
             stats["decodes"] += 1
             keep = torch.as_tensor(np.flatnonzero(~mask), device=tok.device)
             before = [c[:, keep].clone() for c in state]
-            out = decode(tok, length, mask)
+            live.append(torch.as_tensor(np.flatnonzero(mask),
+                                        device=tok.device))
+            try:
+                out = decode(tok, length, mask)
+            finally:
+                live.clear()
             stats["state_moved"] += any(not torch.equal(c[:, keep], b)
                                         for c, b in zip(state, before))
             return out
@@ -1931,6 +2118,7 @@ def serve_logits(argv, kinds, impl: str, dtype: str, forced=None):
             "compressed_adopts", 0)
         stats["parks"] = report.get("slots", {}).get("parks", 0)
     finally:
+        moe.route = route
         for select in setters:
             select("cuda")
     torch.cuda.synchronize()
@@ -1953,16 +2141,18 @@ def logit_gap(got, want, label):
 
 
 def check_serve_kernels_vs_plain(label, argv, kinds, what, f32_tol=None,
-                                 f32_share=None, must=()):
-    """A serving path with the kernels of ``kinds`` against the same path
-    with their plain versions, every sampling call, in bfloat16 (the main
-    path) and with the weights in float32; every run after the first is
-    forced onto the first's tokens.  float32 is held to ``f32_tol`` (max,
-    worst call's mean) or to ``f32_share`` of the distance bfloat16
-    rounding puts between the plain version's two runs, bfloat16 to all of
-    that distance.  Each ``stats`` count named in ``must`` ("evictions",
+                                 f32_share=None, must=(), cfg=None):
+    """A serving path (of ``cfg`` if given: a cut depth) with the kernels
+    of ``kinds`` against the same path with their plain versions, every
+    sampling call, in bfloat16 (the main path) and with the weights in
+    float32; every run after the first is forced onto the first's tokens
+    and MoE routings.  float32 is held to ``f32_tol`` (max, worst call's
+    mean) or to ``f32_share`` of the distance bfloat16 rounding puts
+    between the plain version's two runs, bfloat16 to all of that
+    distance.  Each ``stats`` count named in ``must`` ("evictions",
     "compressed", "parks") must be above 0 in the first run."""
-    base, stats = serve_logits(argv, kinds, "torch", "bfloat16")
+    base, stats = serve_logits(argv, kinds, "torch", "bfloat16", cfg=cfg)
+    free_device_memory()       # each run's model goes before the next's
     print(f"  {label}: the conv / ssm state of the slots outside each "
           f"decode call's length group moved in {stats['state_moved']} of "
           f"{stats['decodes']} calls; {stats['evictions']} pages evicted, "
@@ -1973,18 +2163,26 @@ def check_serve_kernels_vs_plain(label, argv, kinds, what, f32_tol=None,
              "it does not decode")
     if any(stats[k] <= 0 for k in must):
         fail(f"{label}: the comparison runs must count {must} above 0: "
-             f"{stats}")
-    forced = [t for _, t in base]
+             f"{ {k: stats[k] for k in must} }")
+    forced, routes = [t for _, t in base], stats["routes"]
     runs = {("bfloat16", "torch"): base}
     for key in (("bfloat16", "cuda"), ("float32", "torch"),
                 ("float32", "cuda")):
-        runs[key] = serve_logits(argv, kinds, key[1], key[0], forced)[0]
-        if len(runs[key]) != len(base):
-            fail(f"run {key} made {len(runs[key])} sampling calls, the "
-                 f"first {len(base)}")
-    gaps = {"float32": logit_gap(runs["float32", "cuda"],
+        runs[key], got = serve_logits(argv, kinds, key[1], key[0], forced,
+                                      cfg=cfg, forced_routes=routes)
+        free_device_memory()
+        if len(runs[key]) != len(base) or len(got["routes"]) != len(routes):
+            fail(f"run {key} made {len(runs[key])} sampling calls and "
+                 f"routed {len(got['routes'])} MoE blocks, the first "
+                 f"{len(base)} and {len(routes)}")
+        if routes:
+            print(f"  {label} run {key}: {got['flips']} of {got['rows']} "
+                  f"rows routed in {len(routes)} MoE blocks would have gone "
+                  "to other experts than in the first run (replayed)",
+                  flush=True)
+    gaps = {"bfloat16": logit_gap(runs["bfloat16", "cuda"], base, label),
+            "float32": logit_gap(runs["float32", "cuda"],
                                  runs["float32", "torch"], label),
-            "bfloat16": logit_gap(runs["bfloat16", "cuda"], base, label),
             "bfloat16 rounding": logit_gap(base, runs["float32", "torch"],
                                            label)}
     top = max(w.abs().max().item() for w, _ in base)
@@ -2001,8 +2199,7 @@ def check_serve_kernels_vs_plain(label, argv, kinds, what, f32_tol=None,
         fail("no engine step decoded at mixed lengths")
     err, mean, _ = gaps["float32"]
     if f32_tol is None:
-        f32_tol = tuple(f32_share * g
-                        for g in gaps["bfloat16 rounding"][:2])
+        f32_tol = tuple(f32_share * g for g in gaps["bfloat16 rounding"][:2])
     print(f"    limits: float32 {f32_tol[0]:.4g} max, {f32_tol[1]:.3g} "
           "worst call's mean; bfloat16 the plain bf16 vs f32 distance",
           flush=True)
@@ -2023,14 +2220,15 @@ def check_ssm_serve_logits() -> None:
 
 
 def check_zamba2_serve_logits() -> None:
-    """Phase 8: zamba2 serving, the paged decode and the scan on their
-    kernels against both on their plain versions (the int8 codec runs its
-    kernels in every run)."""
+    """Phase 8: zamba2 serving at ``ZAMBA_CMP_LAYERS``, the paged decode
+    and the scan on their kernels against both on their plain versions
+    (the int8 codec runs its kernels in every run)."""
     check_serve_kernels_vs_plain("zamba2", ZAMBA_CMP_ARGS,
                                  ("paged", "ssd"),
                                  "paged decode + scan kernels",
                                  f32_share=ZAMBA_LOGIT_F32_SHARE,
-                                 must=("evictions", "compressed", "parks"))
+                                 must=("evictions", "compressed", "parks"),
+                                 cfg=cut("zamba2-2.7b", ZAMBA_CMP_LAYERS))
 
 
 def check_ssm_serve_main_path():
@@ -2138,9 +2336,9 @@ def shared_frames(cache) -> set:
                                     if table.refcount(pid) > 1}
 
 
-def danube_serve_run(argv, dtype: str, forced=None):
+def danube_serve_run(argv, dtype: str, forced=None, cfg=None):
     """Drive the prefix-sharing path ``argv`` describes (fresh model from
-    the same seed, its weights in ``dtype``).  Returns the logits of every
+    the same seed, its weights in ``dtype``; ``cfg``: a cut depth).  Returns the logits of every
     sampled token keyed by (request uid, token index), the tokens, and
     ``stats``: pages evicted and adopted compressed, prefix hits and
     forks, writes into shared frames (``shared_frames``; by the suffix
@@ -2153,7 +2351,7 @@ def danube_serve_run(argv, dtype: str, forced=None):
     from repro_torch.launch import serve
     from repro_torch.models import transformer as tfm
     args = serve.parse_args(argv)
-    eng = serve.build_engine(args, dtype=dtype)
+    eng = serve.build_engine(args, dtype=dtype, cfg=cfg)
     cache = eng.cache
     rows, logits_by, tokens_by = deque(), {}, {}
     stats = {"shared_writes": 0, "suffix": 0, "decodes": 0,
@@ -2237,58 +2435,85 @@ def keyed_gap(got, want, label):
 
 
 def check_danube_prefix_logits() -> None:
-    """Phase 10's comparison: prefix sharing on against off, every sampled
-    token's logits (each admission's prefill and every decode step), in
-    bfloat16 and with the weights in float32, every run after the first
-    on the first's tokens, raw pages spilled (``DANUBE_CMP_ARGS``).  The
-    sharing runs must hit, fork and evict, and never write a shared
+    """Phase 10's comparison at ``DANUBE_CMP_LAYERS``: prefix sharing on
+    against off, every sampled token's logits (each admission's prefill
+    and every decode step), in bfloat16 and with the weights in float32,
+    every run after the first on the first's tokens, raw pages spilled
+    (``DANUBE_CMP_ARGS``); then the int8 spill's runs, sharing on and off
+    in both dtypes, for the int8 sharing-on run's two limits
+    (``DANUBE_INT8_SHARE``).  The sharing runs must hit, fork and evict,
+    the int8 ones adopt pages compressed, and no run may write a shared
     frame."""
-    base, forced, stats = danube_serve_run(DANUBE_CMP_ARGS, "bfloat16")
+    cfg = cut("h2o-danube-1.8b", DANUBE_CMP_LAYERS)
+    base, forced, stats = danube_serve_run(DANUBE_CMP_ARGS, "bfloat16",
+                                           cfg=cfg)
     free_device_memory()
-    runs = {("bfloat16", True): base}
-    for key in (("bfloat16", False), ("float32", True), ("float32", False)):
-        argv = DANUBE_CMP_ARGS if key[1] else DANUBE_CMP_UNSHARED_ARGS
-        runs[key], _, st = danube_serve_run(argv, key[0], forced)
-        free_device_memory()
-        print(f"  danube run {key[0]}, sharing {'on' if key[1] else 'off'}"
-              f": {st}", flush=True)
-        if key == ("bfloat16", False):
-            off_stats = st
-        elif st["shared_writes"]:
-            fail(f"danube {key}: {st['shared_writes']} writes into shared "
-                 "frames")
-    print(f"  danube, sharing on (bf16, the first run): {stats}; the pages "
-          f"the running sessions hold peak at {stats['peak_held']} on "
-          f"{stats['peak_frames']} frames, unshared on "
-          f"{off_stats['peak_frames']}; {stats['evictions']} pages evicted "
-          f"with sharing, {off_stats['evictions']} without", flush=True)
+    argvs = {("raw", True): DANUBE_CMP_ARGS,
+             ("raw", False): DANUBE_CMP_UNSHARED_ARGS,
+             ("int8", True): DANUBE_INT8_ARGS,
+             ("int8", False): DANUBE_INT8_UNSHARED_ARGS}
+    runs, run_stats = {("raw", True, "bfloat16"): base}, {}
+    for (codec, share), argv in argvs.items():
+        for dtype in ("bfloat16", "float32"):
+            key = (codec, share, dtype)
+            if key in runs:
+                continue
+            runs[key], _, st = danube_serve_run(argv, dtype, forced, cfg=cfg)
+            free_device_memory()
+            run_stats[key] = st
+            print(f"  danube run {dtype}, {codec} spill, sharing "
+                  f"{'on' if share else 'off'}: {st}", flush=True)
+            if share and st["shared_writes"]:
+                fail(f"danube {key}: {st['shared_writes']} writes into "
+                     "shared frames")
+            if codec == "int8" and st["compressed"] <= 0:
+                fail(f"danube {key}: no page adopted compressed")
+    off_stats = run_stats["raw", False, "bfloat16"]
+    print(f"  danube at {DANUBE_CMP_LAYERS} layers, sharing on (bf16, the "
+          f"first run): {stats}; the pages the running sessions hold peak "
+          f"at {stats['peak_held']} on {stats['peak_frames']} frames, "
+          f"unshared on {off_stats['peak_frames']}; {stats['evictions']} "
+          f"pages evicted with sharing, {off_stats['evictions']} without",
+          flush=True)
     if stats["shared_writes"]:
         fail(f"danube: {stats['shared_writes']} writes into shared frames "
              "(a suffix prefill's scatter or a decode's row)")
     if min(stats[k] for k in ("hits", "forks", "evictions", "suffix")) <= 0:
         fail(f"danube: the sharing run must hit, fork and evict: {stats}")
-    gaps = {"float32": keyed_gap(runs["float32", True],
-                                 runs["float32", False], "danube"),
-            "bfloat16": keyed_gap(base, runs["bfloat16", False], "danube"),
-            "bfloat16 rounding": keyed_gap(runs["bfloat16", False],
-                                           runs["float32", False], "danube")}
+
+    def gap(a, b):
+        return keyed_gap(runs[a], runs[b], "danube")
+
+    gaps = {"sharing on vs off, float32": gap(("raw", True, "float32"),
+                                              ("raw", False, "float32")),
+            "sharing on vs off, bfloat16": gap(("raw", True, "bfloat16"),
+                                               ("raw", False, "bfloat16")),
+            "sharing off, bf16 vs f32": gap(("raw", False, "bfloat16"),
+                                            ("raw", False, "float32")),
+            "int8, sharing on, bf16 vs f32": gap(("int8", True, "bfloat16"),
+                                                 ("int8", True, "float32")),
+            "sharing on, f32, int8 vs raw": gap(("int8", True, "float32"),
+                                                ("raw", True, "float32")),
+            "int8, sharing off, bf16 vs f32": gap(
+                ("int8", False, "bfloat16"), ("int8", False, "float32"))}
     top = max(w.abs().max().item() for w in base.values())
     print(f"  danube logits over {len(base)} sampled tokens, |logits| max "
           f"{top:.3g}:", flush=True)
     for name, (err, mean, agree) in gaps.items():
-        line = ("sharing off, bf16 vs f32" if name == "bfloat16 rounding"
-                else f"sharing on vs off, {name}")
-        print(f"    {line}: max abs err {err:.4g}, worst row's mean "
+        print(f"    {name}: max abs err {err:.4g}, worst row's mean "
               f"{mean:.3g}, argmax agreement {agree}", flush=True)
-    tol = {dtype: tuple(share * g for g in gaps["bfloat16 rounding"][:2])
-           for dtype, share in (("float32", DANUBE_F32_SHARE),
-                                ("bfloat16", DANUBE_BF16_SHARE))}
-    print(f"    limits (max, worst row's mean): float32 {tol['float32']}, "
-          f"bfloat16 {tol['bfloat16']}", flush=True)
-    for dtype, (err, mean) in tol.items():
-        if gaps[dtype][0] > err or gaps[dtype][1] > mean:
-            fail(f"danube logits ({dtype}): sharing on moves them from "
-                 f"sharing off beyond {tol[dtype]}")
+    rounding = gaps["sharing off, bf16 vs f32"][:2]
+    int8_off = gaps["int8, sharing off, bf16 vs f32"][:2]
+    limits = {"sharing on vs off, float32": (DANUBE_F32_SHARE, rounding),
+              "sharing on vs off, bfloat16": (DANUBE_BF16_SHARE, rounding),
+              "int8, sharing on, bf16 vs f32": (DANUBE_INT8_SHARE, int8_off),
+              "sharing on, f32, int8 vs raw": (DANUBE_INT8_SHARE, int8_off)}
+    print("    limits (max, worst row's mean): " + "; ".join(
+        f"{name} {share} x ({d[0]:.4g}, {d[1]:.3g})"
+        for name, (share, d) in limits.items()), flush=True)
+    for name, (share, d) in limits.items():
+        if gaps[name][0] > share * d[0] or gaps[name][1] > share * d[1]:
+            fail(f"danube logits, {name}: beyond {share} x {d}")
 
 
 def check_danube_serve_main_path():
@@ -2330,6 +2555,131 @@ def check_danube_serve_main_path():
     return launches
 
 
+def check_mixtral_serve_logits() -> None:
+    """Phase 11's comparison at ``MIXTRAL_SERVE_LAYERS``: the paged decode
+    on its kernel against its plain version, in bfloat16 and with the
+    weights in float32, every MoE block on the first run's routing
+    (``MIXTRAL_CMP_ARGS``)."""
+    check_serve_kernels_vs_plain("mixtral", MIXTRAL_CMP_ARGS, ("paged",),
+                                 "paged decode kernel",
+                                 f32_share=MIXTRAL_LOGIT_F32_SHARE,
+                                 must=("evictions", "compressed"),
+                                 cfg=cut("mixtral-8x7b",
+                                         MIXTRAL_SERVE_LAYERS))
+
+
+def routed_prefills(run, batch: int):
+    """Run ``run()`` counting what every MoE prefill (a block of more rows
+    than the ``batch`` decode slots) routed: assignments, those dropped at
+    capacity and the tokens each expert received, summed over the layers
+    and admissions.  Returns (run's result, counts)."""
+    from repro_torch.models import moe
+    route = moe.route
+    counts = {"prefills": 0, "assigned": 0, "dropped": 0, "per_expert": 0}
+
+    def spy(x2d, router, top_k, cap, num_experts):
+        out = route(x2d, router, top_k, cap, num_experts)
+        T = x2d.shape[0]
+        if T > batch:
+            kept = (out[0] < T).sum(1)
+            counts["prefills"] += 1
+            counts["assigned"] += T * top_k
+            counts["dropped"] = counts["dropped"] + T * top_k - kept.sum()
+            counts["per_expert"] = counts["per_expert"] + kept
+        return out
+
+    moe.route = spy
+    try:
+        result = run()
+    finally:
+        moe.route = route
+    counts["dropped"] = int(counts["dropped"])
+    counts["per_expert"] = (counts["per_expert"].tolist()
+                            if counts["prefills"] else [])
+    return result, counts
+
+
+def check_mixtral_serve_main_path():
+    """Phase 11's counted serving run: every request finishes with 64
+    tokens; the paged decode launches once per layer per decode call and
+    the codec once a page; pages are evicted and resumed compressed; what
+    was stashed comes back byte for byte; prefills drop tokens at
+    capacity."""
+    from repro_torch.launch import serve
+    cfg = cut("mixtral-8x7b", MIXTRAL_SERVE_LAYERS)
+    (eng, launches), routed = routed_prefills(
+        lambda: counted(lambda: serve.main(MIXTRAL_ARGS, cfg=cfg)), 6)
+    print(f"  launches on the mixtral serving path: {launches}", flush=True)
+    sessions = eng.sessions
+    if len(sessions) != 16 or any(s.finish_reason != "length"
+                                  or len(s.result()) != 64
+                                  for s in sessions):
+        fail("not every request finished with 64 tokens: " + str(
+            [(s.uid, s.finish_reason, len(s.result())) for s in sessions]))
+    vocab = eng.model.cfg.padded_vocab
+    if any(not 0 <= t < vocab for s in sessions for t in s.result()):
+        fail("a generated token lies outside the padded vocabulary")
+    report = eng.traffic_report()
+    steps = report["decode_io"]["steps"]
+    print(f"  mixtral prefills: {routed['prefills']} MoE blocks routed "
+          f"{routed['assigned']} assignments, {routed['dropped']} dropped at "
+          f"capacity ({routed['dropped'] / max(routed['assigned'], 1):.2%});"
+          f" tokens each expert received {routed['per_expert']}", flush=True)
+    print(f"  mixtral pages {report['pages']}; compressed adoptions "
+          f"{report['decode_io']['compressed_adopts']}; preemptions "
+          f"{sum(s.preemptions for s in sessions)}", flush=True)
+    if routed["prefills"] != MIXTRAL_SERVE_LAYERS * len(sessions) or \
+            routed["dropped"] <= 0:
+        fail(f"mixtral: want {MIXTRAL_SERVE_LAYERS} routed blocks an "
+             f"admission and tokens dropped at capacity: {routed}")
+    if report["pages"]["evictions"] <= 0 or \
+            report["decode_io"]["compressed_adopts"] <= 0:
+        fail("the mixtral path must evict pages and resume some compressed")
+    if launches["paged_decode_attention"] != MIXTRAL_SERVE_LAYERS * steps:
+        fail(f"paged_decode_attention launched "
+             f"{launches['paged_decode_attention']} times in {steps} decode "
+             f"calls; want {MIXTRAL_SERVE_LAYERS} each")
+    check_page_launches("mixtral", report, launches)
+    stash, fetch = report.get("kv_stash", {}), report.get("kv_fetch", {})
+    if not stash.get("calls") or any(stash.get(k) != fetch.get(k)
+                                     for k in ("wire_bytes", "calls")):
+        fail("the mixtral spill did not move equal stash and fetch bytes")
+    return launches
+
+
+def check_train_mixtral():
+    """Phase 11's training: the counted run at ``MIXTRAL_TRAIN_LAYERS``
+    (each MoE sub-layer stashed through fp8 and recomputed: the fp8 pack
+    and the unpack once a layer a step, the flash forward twice), finite
+    losses and a finite aux loss above 0; two profiled steps; then 3 steps
+    in float32, the flash forward plain against the kernel."""
+    cfg = cut("mixtral-8x7b", MIXTRAL_TRAIN_LAYERS)
+    n = MIXTRAL_TRAIN_LAYERS
+    out, launches = check_train_path(
+        "mixtral training", MIXTRAL_TRAIN_ARGS, n, MIXTRAL_TRAIN_STEPS,
+        {"fp8_pack": n, "fp8_unpack": n, "flash_attention_fwd": 2 * n},
+        require_fall=False, cfg=cfg)
+    aux = [h["aux_loss"] for h in out["history"]]
+    print(f"  aux loss (Switch, summed over {n} layers): "
+          f"{[round(a, 4) for a in aux]}", flush=True)
+    if not all(math.isfinite(a) and a > 0 for a in aux):
+        fail(f"mixtral aux loss not finite and above 0: {aux}")
+    profile_train_steps(out, MIXTRAL_TRAIN_STEPS)
+    del out
+    free_device_memory()
+    gap = train_gap(
+        train_steps_with(MIXTRAL_TRAIN_ARGS, ("flash",), "cuda",
+                         dtype="float32", cfg=cfg),
+        train_steps_with(MIXTRAL_TRAIN_ARGS, ("flash",), "torch",
+                         dtype="float32", cfg=cfg),
+        "mixtral flash kernel vs plain, float32")
+    print(f"    limits: {MIXTRAL_TRAIN_F32_TOL}", flush=True)
+    if any(gap[k] > tol for k, tol in MIXTRAL_TRAIN_F32_TOL.items()):
+        fail("mixtral training with the flash kernel (float32) disagrees "
+             "with the plain version")
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a GPU")
@@ -2343,10 +2693,17 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+    marks = []
 
     def phase(title):
-        print(f"== {title} (at {time.perf_counter() - t_start:.0f} s)",
-              flush=True)
+        """Print the wall time of the phase that ends here, then the next
+        phase's title."""
+        now = time.perf_counter()
+        if marks:
+            print(f"  {marks[-1][0]}: {now - marks[-1][1]:.1f} s wall",
+                  flush=True)
+        marks.append((title.split(":")[0], now))
+        print(f"== {title} (at {now - t_start:.0f} s)", flush=True)
 
     phase("phase 1: device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2360,7 +2717,6 @@ def main() -> None:
           flush=True)
 
     phase("phase 2: build")
-    t0 = time.perf_counter()
     built = build.build()
     for name, info in built.items():
         print(f"  {name}.cu: {info['seconds']:.1f}s", flush=True)
@@ -2370,11 +2726,9 @@ def main() -> None:
                 print(f"    {entry[1].split(chr(39))[0][:100]}")
             elif "registers" in line or "spill" in line:
                 print(f"    {line.strip()}")
-    print(f"  build: {time.perf_counter() - t0:.1f}s wall "
-          f"({len(built)} libraries)", flush=True)
+    print(f"  {len(built)} libraries built", flush=True)
 
     phase("phase 3: kernels against their plain versions")
-    t0 = time.perf_counter()
     results, others = {}, {}
     check_paged(dev, results, others)
     check_codec(dev, results, others)
@@ -2382,6 +2736,7 @@ def main() -> None:
     check_flash(dev, results, others)
     check_ssd(dev, results, others)
     check_zamba2_kernels(dev, others)
+    check_stash(dev, others, "mixtral", 4096, seed=10)
     check_gemm(dev, results, others)
     by_path = {"gemm": check_gemm_path()}
     for name, r in list(results.items()) + list(others.items()):
@@ -2390,7 +2745,6 @@ def main() -> None:
               f"{r['eager_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, "
               f"library {lib} ms, bound {r['bound_ms']:.6f} ms "
               f"({r['bound_by']})", flush=True)
-    print(f"  phase 3: {time.perf_counter() - t0:.1f} s wall", flush=True)
 
     phase("phase 4: serving main path (full-width smollm-135m, bf16)")
     check_main_path_logits()
@@ -2423,27 +2777,35 @@ def main() -> None:
     check_train_ssd_vs_plain()
 
     phase("phase 8: serving main path (full-width zamba2-2.7b, bf16, "
-          "paged shared-block KV beside slot-shaped SSM state, int8 spill)")
-    t0 = time.perf_counter()
+          "paged shared-block KV beside slot-shaped SSM state, int8 spill; "
+          f"comparison runs at {ZAMBA_CMP_LAYERS} layers)")
     check_zamba2_serve_logits()
     by_path["serve_zamba2"] = check_zamba2_serve_main_path()
-    print(f"  phase 8: {time.perf_counter() - t0:.1f} s wall", flush=True)
     free_device_memory()
 
     phase(f"phase 9: training main path (full-width zamba2-2.7b, bf16, "
           f"batch {TRAIN_BATCH} x {TRAIN_SEQ}, host tier, fp8 stash)")
-    t0 = time.perf_counter()
     by_path["train_zamba2"] = check_train_zamba2()
-    print(f"  phase 9: {time.perf_counter() - t0:.1f} s wall", flush=True)
     free_device_memory()
 
     phase("phase 10: prefix-sharing serving main path (full-width "
-          "h2o-danube-1.8b, bf16, a 328-token shared head, int8 spill)")
-    t0 = time.perf_counter()
+          "h2o-danube-1.8b, bf16, a 328-token shared head, int8 spill; "
+          f"comparison runs at {DANUBE_CMP_LAYERS} layers)")
     check_danube_prefix_logits()
     by_path["serve_danube"] = check_danube_serve_main_path()
-    print(f"  phase 10: {time.perf_counter() - t0:.1f} s wall", flush=True)
+    free_device_memory()
+
+    phase(f"phase 11: MoE (full-width mixtral-8x7b, bf16): serving at "
+          f"{MIXTRAL_SERVE_LAYERS} of 32 layers, training at "
+          f"{MIXTRAL_TRAIN_LAYERS} (batch {TRAIN_BATCH} x {TRAIN_SEQ}, host "
+          "tier, fp8 stash)")
+    check_mixtral_serve_logits()
+    by_path["serve_mixtral"] = check_mixtral_serve_main_path()
+    free_device_memory()
+    by_path["train_mixtral"] = check_train_mixtral()
     phase("done")
+    print(f"  whole script: {time.perf_counter() - t_start:.1f} s wall",
+          flush=True)
 
     rows = []
     for name, r in results.items():

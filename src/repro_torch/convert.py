@@ -15,10 +15,11 @@ import numpy as np
 import torch
 
 #: subtrees and leaves that stay float32 whatever the model dtype, as the
-#: reference initialises them: the norms and the Mamba2 block's decay,
-#: skip, step bias and gated-norm scale (``repro/models/ssm.mamba_init``)
+#: reference initialises them: the norms, the Mamba2 block's decay, skip,
+#: step bias and gated-norm scale (``repro/models/ssm.mamba_init``) and the
+#: MoE router (``repro/models/moe.moe_init``)
 F32_KEYS = ("ln1", "ln2", "ln_x", "final_norm",
-            "A_log", "D", "dt_bias", "norm_scale")
+            "A_log", "D", "dt_bias", "norm_scale", "router")
 
 
 def _to_tensor(a: Any, device, dtype: Optional[torch.dtype],

@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import MemoryPlan, RunConfig, get_arch
-from repro_torch.configs.base import ShapeConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core.runtime import fmt_bytes
 from repro_torch.models.model import build_model
 from repro_torch.serve.engine import Engine, Request
@@ -108,13 +108,17 @@ def parse_args(argv=None) -> argparse.Namespace:
     return args
 
 
-def build_engine(args: argparse.Namespace,
-                 dtype: Optional[str] = None) -> Engine:
+def build_engine(args: argparse.Namespace, dtype: Optional[str] = None,
+                 cfg: Optional[ModelConfig] = None) -> Engine:
     """The model (random weights from ``--seed``) behind its engine;
-    ``dtype`` (e.g. "float32") overrides the configuration's."""
-    cfg = get_arch(args.arch)
-    if args.smoke:
-        cfg = cfg.reduced()
+    ``dtype`` (e.g. "float32") overrides the configuration's.  ``cfg``
+    (no flag sets it) replaces ``--arch`` / ``--smoke``'s configuration,
+    e.g. one cut in depth with ``dataclasses.replace(cfg, num_layers=N)``
+    to fit a card."""
+    if cfg is None:
+        cfg = get_arch(args.arch)
+        if args.smoke:
+            cfg = cfg.reduced()
     if dtype is not None:
         cfg = dataclasses.replace(cfg, dtype=dtype)
     shape = ShapeConfig("serve", args.max_len or 128, args.batch or 4,
@@ -170,12 +174,13 @@ def kernel_launches() -> dict:
             "unpack": offload_pack.fp8_unpack.launches}
 
 
-def main(argv=None) -> Engine:
+def main(argv=None, cfg: Optional[ModelConfig] = None) -> Engine:
     """Serve the synthetic requests and print the summary; returns the
-    engine (its sessions and traffic report) for callers that check it."""
+    engine (its sessions and traffic report) for callers that check it.
+    ``cfg``: as :func:`build_engine`'s (the command line never sets it)."""
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO)
-    eng = build_engine(args)
+    eng = build_engine(args, cfg=cfg)
     model, cfg = eng.model, eng.model.cfg
     print(eng.describe())
     print(f"model: {cfg.name} {cfg.num_layers}L d_model={cfg.d_model} "

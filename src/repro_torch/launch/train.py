@@ -22,7 +22,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 from repro_torch.configs import (MemoryPlan, RunConfig, SHAPES_BY_NAME,
                                  TrainConfig, get_arch)
-from repro_torch.configs.base import ShapeConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.data.pipeline import Prefetcher, SyntheticLM
 from repro_torch.models.model import Model, build_model
 from repro_torch.models.transformer import arch_group
@@ -56,11 +56,15 @@ def parse_args(argv=None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def build_run(args: argparse.Namespace, dtype: Optional[str] = None
+def build_run(args: argparse.Namespace, dtype: Optional[str] = None,
+              cfg: Optional[ModelConfig] = None
               ) -> Tuple[Model, TrainConfig, SyntheticLM]:
     """The model, its train config and its data stream for ``args``;
-    ``dtype`` (e.g. "float32") overrides the configuration's."""
-    cfg = get_arch(args.arch)
+    ``dtype`` (e.g. "float32") overrides the configuration's.  ``cfg`` (no
+    flag sets it) replaces ``--arch``'s configuration, e.g. one cut in
+    depth with ``dataclasses.replace(cfg, num_layers=N)`` to fit a card."""
+    if cfg is None:
+        cfg = get_arch(args.arch)
     if dtype is not None:
         cfg = dataclasses.replace(cfg, dtype=dtype)
     if args.smoke:
@@ -81,14 +85,15 @@ def build_run(args: argparse.Namespace, dtype: Optional[str] = None
     return model, tc, SyntheticLM(cfg, batch=batch, seq=seq, seed=tc.seed)
 
 
-def main(argv=None) -> Dict[str, Any]:
+def main(argv=None, cfg: Optional[ModelConfig] = None) -> Dict[str, Any]:
     """Train and log; returns ``{"model", "tc", "source", "state",
     "history"}`` (history: the logged steps' metrics) for callers that
-    check the run."""
+    check the run.  ``cfg``: as :func:`build_run`'s (the command line
+    never sets it)."""
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO, stream=sys.stdout,
                         format="%(asctime)s %(name)s %(message)s")
-    model, tc, source = build_run(args)
+    model, tc, source = build_run(args, cfg=cfg)
     cfg = model.cfg
     group, n_groups = arch_group(cfg)
     stashed = n_groups if model.runtime.offloads else 0

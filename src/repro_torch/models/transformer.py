@@ -5,14 +5,17 @@ The parameter tree is the reference's: ``embed``, ``final_norm`` and
 ``groups/sub_j/...`` with every group leaf stacked on a leading layer axis
 and weights stored ``(d_in, d_out)``; a dense sub-layer holds ``{ln1,
 attn/{wq,wk,wv,wo}, ln2, mlp/{w1,w2,w3}}``, an SSM sub-layer ``{ln1,
-ssm/{in_proj, conv_w, conv_b, A_log, D, dt_bias, norm_scale, out_proj}}``.
-The hybrid (zamba2) keeps its one shared-weight transformer block
-unstacked in ``shared`` and applies it at every site; its caches stack
+ssm/{in_proj, conv_w, conv_b, A_log, D, dt_bias, norm_scale, out_proj}}``,
+an MoE sub-layer ``{ln1, attn, ln2, moe/{router, w1, w3, w2[, shared_w1,
+shared_w3, shared_w2]}}``.  The hybrid (zamba2) keeps its one
+shared-weight transformer block unstacked in ``shared`` and applies it
+at every site; its caches stack
 that block's k/v over the sites as any group's.  A Python loop over the
 stacked layer axis replaces the reference's ``lax.scan``.  Ported so far:
 the dense family (smollm, h2o-danube, command-r, starcoder2), the pure
-SSM family (mamba2) and the hybrid (zamba2); MoE and the
-encoder-decoder branches come with later slices.
+SSM family (mamba2), the hybrid (zamba2) and the MoE family on one device
+(mixtral: every layer MoE; llama4: a ``("dense", "moe")`` group); the
+encoder-decoder and VLM branches come with a later slice.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ import torch
 
 from repro_torch import tree
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import (attention_block, attn_init,
                                           init_kv_cache)
@@ -52,14 +56,12 @@ def arch_group(cfg: ModelConfig) -> Tuple[Tuple[str, ...], int]:
 
 def _require_ported(cfg: ModelConfig) -> None:
     """Admit the families ported so far (dense decoders, pure SSM, the
-    SSM + shared-attention hybrid); name the slice that ports each of the
-    others."""
+    SSM + shared-attention hybrid, MoE on one device); name the slice that
+    ports each of the others."""
     group, _ = arch_group(cfg)
     if cfg.is_encoder_decoder or cfg.frontend != "none":
         later = "the encoder-decoder / VLM slice 3d"
-    elif cfg.is_moe:
-        later = "the MoE slice 3c"
-    elif cfg.is_hybrid or group in (("dense",), ("ssm",)):
+    elif cfg.is_hybrid or cfg.is_moe or group in (("dense",), ("ssm",)):
         return
     else:
         later = "a later slice"
@@ -92,11 +94,13 @@ def run_sublayer(kind: str, params: dict, ctx: ModelContext,
                  cache_index: Optional[int] = None,
                  prefix_attend: bool = False,
                  paged: Optional[dict] = None
-                 ) -> Tuple[torch.Tensor, Optional[dict]]:
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
+                            Optional[dict]]:
     """One dense, shared (the hybrid's transformer block: the dense code
-    on the unstacked ``shared`` weights) or SSM sub-layer; returns
-    ``(x_out, cache)``.  An SSM sub-layer writes its new conv / ssm state
-    into ``cache`` in place."""
+    on the unstacked ``shared`` weights), MoE or SSM sub-layer; returns
+    ``(x_out, aux loss, cache)`` (the aux loss is the MoE block's, None
+    for the other kinds).  An SSM sub-layer writes its new conv / ssm
+    state into ``cache`` in place."""
     cfg = ctx.cfg
     if kind == "ssm":
         h = apply_norm(cfg, params["ln1"], x)
@@ -104,18 +108,23 @@ def run_sublayer(kind: str, params: dict, ctx: ModelContext,
         if cache is not None:
             for k, v in new.items():
                 cache[k].copy_(v)
-        return x + y, cache
-    if kind not in ("dense", "shared"):
+        return x + y, None, cache
+    if kind not in ("dense", "shared", "moe"):
         raise NotImplementedError(f"sub-layer kind {kind!r} is not ported")
     h = apply_norm(cfg, params["ln1"], x)
     a, cache = attention_block(params["attn"], ctx, h, positions,
                                cache=cache, cache_index=cache_index,
                                prefix_attend=prefix_attend, paged=paged)
+    if kind == "moe":
+        x = x + a
+        m, aux = moe_mod.moe_block(params["moe"], ctx,
+                                   apply_norm(cfg, params["ln2"], x))
+        return x + m, aux, cache
     if cfg.parallel_block:
-        return x + a + mlp_block(params["mlp"], ctx, h), cache  # cohere
+        return x + a + mlp_block(params["mlp"], ctx, h), None, cache  # cohere
     x = x + a
     h = apply_norm(cfg, params["ln2"], x)
-    return x + mlp_block(params["mlp"], ctx, h), cache
+    return x + mlp_block(params["mlp"], ctx, h), None, cache
 
 
 # ---------------------------------------------------------------------------
@@ -136,8 +145,13 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, dtype,
                     "ssm": ssm_mod.mamba_init(gen, cfg, dtype, device,
                                               stack=stack)}
         sub = {"ln1": stacked_norm(stack),
-               "attn": attn_init(gen, cfg, dtype, device, stack=stack),
-               "mlp": mlp_init(gen, cfg, dtype, device, stack=stack)}
+               "attn": attn_init(gen, cfg, dtype, device, stack=stack)}
+        if kind == "moe":
+            sub["ln2"] = stacked_norm(stack)
+            sub["moe"] = moe_mod.moe_init(gen, cfg, dtype, device,
+                                          stack=stack)
+            return sub
+        sub["mlp"] = mlp_init(gen, cfg, dtype, device, stack=stack)
         if not cfg.parallel_block:
             sub["ln2"] = stacked_norm(stack)
         return sub
@@ -171,8 +185,10 @@ def _train_sublayer(ctx: ModelContext, kind: str, params: dict,
                     x: torch.Tensor, positions: torch.Tensor
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One sub-layer of the training stack -> (x_out, aux loss)."""
-    y, _ = run_sublayer(kind, params, ctx, x, positions)
-    return y, torch.zeros((), dtype=torch.float32, device=x.device)
+    y, aux, _ = run_sublayer(kind, params, ctx, x, positions)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return y, aux
 
 
 def forward_train(params: Params, ctx: ModelContext, tokens: torch.Tensor,
@@ -239,9 +255,9 @@ def forward_serve(params: Params, ctx: ModelContext, tokens: torch.Tensor,
                  tree.map(lambda t: t[layer], params["groups"][f"sub_{j}"]))
             c = caches.get(f"sub_{j}")
             c = {k: v[layer] for k, v in c.items()} if c is not None else None
-            x, _ = run_sublayer(kind, p, ctx, x, positions, cache=c,
-                                cache_index=cache_index,
-                                prefix_attend=prefix_attend, paged=paged)
+            x, _, _ = run_sublayer(kind, p, ctx, x, positions, cache=c,
+                                   cache_index=cache_index,
+                                   prefix_attend=prefix_attend, paged=paged)
     return apply_norm(cfg, params["final_norm"], x), caches
 
 

@@ -100,18 +100,37 @@ def global_norm(grads: Pytree) -> torch.Tensor:
                           for g in tree.leaves(grads)))
 
 
+def _adamw_f32(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
+               v: torch.Tensor, clip, lr, bc1, bc2, tc: TrainConfig,
+               decay: bool) -> None:
+    """The AdamW update of one leaf with float32 moments, ``p``, ``m`` and
+    ``v`` in place, the same roundings as the out-of-place form."""
+    b1, b2, eps = tc.beta1, tc.beta2, tc.eps
+    g = g.float() * clip
+    m.mul_(b1).add_((1 - b1) * g)
+    v.mul_(b2).add_((1 - b2) * torch.square(g))
+    upd = (m / bc1) / (torch.sqrt(v / bc2) + eps)
+    if decay:
+        upd = upd + tc.weight_decay * p.float()
+    p.copy_((p.float() - lr * upd).to(p.dtype))
+
+
 @torch.no_grad()
 def apply_adamw(params: Pytree, grads: Pytree, state: Pytree,
                 tc: TrainConfig) -> Tuple[Pytree, Pytree, Dict[str, Any]]:
     """One AdamW step with global-norm clipping.  Returns (params, state,
-    metrics); ``params`` are the same tensors, updated in place."""
+    metrics); ``params`` are the same tensors, updated in place, and so
+    are float32 moments (8-bit ones are requantised into new leaves).  A
+    stacked leaf with float32 moments is updated a layer at a time, so
+    the float32 temporaries are one layer's (a mixtral expert leaf is
+    1.9 GB of float32 a layer)."""
     count = state["count"] + 1
     gnorm = global_norm(grads)
     clip = torch.clamp(torch.full_like(gnorm, tc.grad_clip)
                        / torch.clamp(gnorm, min=1e-9),
                        max=1.0) if tc.grad_clip > 0 else 1.0
     lr = lr_schedule(tc, count)
-    b1, b2, eps = tc.beta1, tc.beta2, tc.eps
+    b1, b2 = tc.beta1, tc.beta2
     cf = count.float()
     bc1 = 1 - torch.pow(torch.tensor(b1, device=cf.device), cf)
     bc2 = 1 - torch.pow(torch.tensor(b2, device=cf.device), cf)
@@ -123,18 +142,18 @@ def apply_adamw(params: Pytree, grads: Pytree, state: Pytree,
     flat_v = [_at(state["v"], p) for p in paths]
     new_m, new_v = [], []
     for p, g, m, v in zip(flat_p, flat_g, flat_m, flat_v):
-        g = g.float() * clip
-        mq, vq = _is_q8(m), _is_q8(v)
-        m_f = _dq_any(m) if mq else m
-        v_f = _dq_any(v) if vq else v
-        m_f = b1 * m_f + (1 - b1) * g
-        v_f = b2 * v_f + (1 - b2) * torch.square(g)
-        upd = (m_f / bc1) / (torch.sqrt(v_f / bc2) + eps)
-        if p.ndim >= 1:   # decoupled weight decay (skip scalars/norms)
-            upd = upd + tc.weight_decay * p.float()
-        p.copy_((p.float() - lr * upd).to(p.dtype))
-        new_m.append(_q8(m_f) if mq else m_f)
-        new_v.append(_q8_log(v_f) if vq else v_f)
+        if _is_q8(m):               # 8-bit moments (never on a scalar)
+            m_f, v_f = _dq_any(m), _dq_any(v)
+            _adamw_f32(p, g, m_f, v_f, clip, lr, bc1, bc2, tc, True)
+            new_m.append(_q8(m_f))
+            new_v.append(_q8_log(v_f))
+            continue
+        # decoupled weight decay on every leaf but scalars
+        for sl in ([(p, g, m, v)] if p.ndim < 3 else
+                   zip(p.unbind(0), g.unbind(0), m.unbind(0), v.unbind(0))):
+            _adamw_f32(*sl, clip, lr, bc1, bc2, tc, p.ndim >= 1)
+        new_m.append(m)
+        new_v.append(v)
 
     metrics = {"grad_norm": gnorm, "lr": lr}
     return (params,

@@ -100,6 +100,26 @@ def test_paged_decode_matches_plain(dev, dtype, window, softcap, shape):
     assert torch.equal(got, torch.zeros_like(got))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [0, 256])
+def test_paged_decode_at_mixtral_shape(dev, dtype, window):
+    """mixtral-8x7b's decode shape: head_dim 128, 32 query heads over 8 kv
+    heads (G 4), 6 slots of 32 pages of 16, side-pool frames on every third
+    map entry; without a window and with one of 256 rows that masks (the
+    model's own 4096 masks nothing at 512 rows).  f32 to 2e-5, bf16 to two
+    bf16 ulps of each fill's largest output."""
+    args, side = _paged_inputs(dev, dtype, B=6, H=32, K=8, hd=128, pp=32,
+                               C=24, seed=5, stride=3)
+    for idx in (0, 15, 16, 255, 256, 300, 383, 511):
+        for extra in ({}, side):
+            got = paged_decode_attention(*args, idx, window=window, **extra)
+            want = ref.paged_decode_attention_ref(*args, idx, window=window,
+                                                  **extra)
+            tol = 2e-5 if dtype == torch.float32 else _bf16_ulps(want, 2)
+            torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                                       atol=tol)
+
+
 def test_paged_decode_rejects_what_it_cannot_run(dev):
     args, _ = _paged_inputs(dev, torch.bfloat16)
     with pytest.raises(TypeError):          # mixed dtypes: no fallback
