@@ -36,7 +36,14 @@ DANUBE='check_danube_prefix_logits()'
 # decode on its kernel against its plain version in float32 and bfloat16,
 # every MoE block on the first run's routing)
 MIXTRAL='check_mixtral_serve_logits()'
-SHOW='main path logits|reciprocal probe|paged_decode_attention (float|bfloat)|ssd_scan rounding probe|flash_attention_fwd (float|bfloat)|training, |bit-exact|  ssd_scan (float|bfloat)|(mamba2|zamba2|mixtral) logits|    (scan kernel|paged decode|plain bf16)|gemm_os (float|bfloat)|gemm path|state of the slots|    limits: |    limits \(max|    sharing |    int8, |danube at |MoE blocks|FAILED'
+# phase 12's comparisons: qwen2-vl serving at 8 of its 28 layers (the
+# paged decode at G 6, head_dim 128), whisper training in float32 at 6
+# encoder and 6 decoder layers (the flash forward non-causal over 1500
+# frames), whisper serving (the kernel path against the gather path)
+QWEN='check_qwen2vl_serve_logits()'
+WHISPER_TRAIN='check_train_whisper_vs_plain()'
+WHISPER_SERVE='check_whisper_serve_logits()'
+SHOW='main path logits|reciprocal probe|paged_decode_attention (float|bfloat)|ssd_scan rounding probe|flash_attention_fwd (float|bfloat)|training, |bit-exact|  ssd_scan (float|bfloat)|(mamba2|zamba2|mixtral|qwen2-vl|whisper) logits|    (scan kernel|paged decode|plain bf16|kernel path)|gemm_os (float|bfloat)|gemm path|of the slots outside|    limits: |    limits \(max|    sharing |    int8, |danube at |MoE blocks|FAILED'
 ONLY=" $* "
 
 fault() {   # name, file (from the checkout's root), sed expression, checks
@@ -65,7 +72,7 @@ import chip_smoke as c; c.$check" 2>&1) |
 # the tensor cores, float32 on the CUDA cores)
 fault scale_of_frame0 $CSRC/paged_attention.cu \
   's/sk = a.ks\[ci\]; sv = a.vs\[ci\];/sk = a.ks[0]; sv = a.vs[0];/; s/const float sk = a.ks\[ci\], sv = a.vs\[ci\];/const float sk = a.ks[0], sv = a.vs[0];/' \
-  "$MAIN $ZAMBA $MIXTRAL"
+  "$MAIN $ZAMBA $MIXTRAL $QWEN $WHISPER_SERVE"
 # K and V side-pool scales swapped (both paths)
 fault kv_scales_swapped $CSRC/paged_attention.cu \
   's/sk = a.ks\[ci\]; sv = a.vs\[ci\];/sk = a.vs[ci]; sv = a.ks[ci];/; s/const float sk = a.ks\[ci\], sv = a.vs\[ci\];/const float sk = a.vs[ci], sv = a.ks[ci];/' \
@@ -107,6 +114,12 @@ fault flash_mma_kv_head_mod $CSRC/flash_attention.cu \
 fault flash_mma_causal_shift $CSRC/flash_attention.cu \
   's/vis = vis \&\& qp >= kp;/vis = vis \&\& qp > kp;/' \
   "$FLASH $ZAMBA_TRAIN"
+# flash (both paths): the ragged last kv tile dropped when causal == 0
+# (whisper's encoder and cross-attention read 1500 frames, 23 tiles of 64
+# and 28 rows)
+fault flash_noncausal_ragged_tail $CSRC/flash_attention.cu \
+  's/^  end = n_kv;$/  end = a.T \/ BK;/' \
+  "$FLASH $WHISPER_TRAIN"
 # flash (bfloat16): p left unrounded before the PV product -- its low 16
 # bits cut off as it is packed, where the reference rounds it to bf16
 fault flash_mma_p_unrounded $CSRC/flash_attention.cu \

@@ -2,7 +2,8 @@
 
 The port keeps the reference's parameter tree as its own layout (``embed``,
 ``final_norm``, ``groups/sub_j/...`` stacked on a leading layer axis, the
-hybrid's ``shared`` block unstacked, weights ``(d_in, d_out)``), so
+hybrid's ``shared`` block unstacked, the frontend's ``frontend`` and the
+encoder-decoder's ``encoder`` trees, weights ``(d_in, d_out)``), so
 conversion is leaf-wise: the caller hands
 the tree over as nested dicts of numpy arrays (``np.asarray`` of each JAX
 leaf) and gets torch tensors back.  Nothing here imports JAX.
@@ -15,7 +16,9 @@ import numpy as np
 import torch
 
 #: subtrees and leaves that stay float32 whatever the model dtype, as the
-#: reference initialises them: the norms, the Mamba2 block's decay, skip,
+#: reference initialises them: the norms (``ln_x`` the decoder's before
+#: cross-attention, ``final_norm`` the encoder's too), the Mamba2 block's
+#: decay, skip,
 #: step bias and gated-norm scale (``repro/models/ssm.mamba_init``) and the
 #: MoE router (``repro/models/moe.moe_init``)
 F32_KEYS = ("ln1", "ln2", "ln_x", "final_norm",

@@ -5,8 +5,8 @@ The CPU role the paper worries about (§V-A: "getting the training datasets
 ready to be fed into the accelerators") lives here: batches are produced on
 a host thread, pinned, and copied to the card ahead of use, so the input
 pipeline overlaps the step.  ``SyntheticLM.batch_at`` is numpy only and
-byte-identical to the reference's.  The file-backed ``MemmapTokens`` and
-the frontends' frames and patches port with later slices.
+byte-identical to the reference's, the frontends' frames and patches
+included; so is the file-backed ``MemmapTokens``.
 """
 from __future__ import annotations
 
@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import frontends
 
 
 class SyntheticLM:
@@ -30,9 +31,6 @@ class SyntheticLM:
     """
 
     def __init__(self, cfg: ModelConfig, batch: int, seq: int, seed: int = 0):
-        if cfg.frontend != "none":
-            raise NotImplementedError(
-                f"{cfg.name}: frontend frames / patches port with slice 3d")
         self.cfg, self.batch, self.seq = cfg, batch, seq
         self.seed = seed
         self.step = 0
@@ -53,7 +51,48 @@ class SyntheticLM:
                                   (3, B, S)).copy()
         else:
             pos = np.broadcast_to(np.arange(S, dtype=np.int32), (B, S)).copy()
-        return {"tokens": tokens, "labels": labels, "positions": pos}
+        d = {"tokens": tokens, "labels": labels, "positions": pos}
+        if cfg.frontend == "audio_stub":
+            d["frames"] = rng.standard_normal(
+                (B, cfg.frontend_tokens, frontends.AUDIO_FRAME_DIM),
+                dtype=np.float32)
+        if cfg.frontend == "vision_stub":
+            d["patches"] = rng.standard_normal(
+                (B, cfg.frontend_tokens, frontends.VISION_PATCH_DIM),
+                dtype=np.float32)
+            d["labels"][:, :cfg.frontend_tokens] = -1   # no CE on patches
+        return d
+
+    def __iter__(self) -> Iterator[Tuple[int, Dict[str, np.ndarray]]]:
+        while True:
+            t = self.step
+            self.step += 1
+            yield t, self.batch_at(t)
+
+
+class MemmapTokens:
+    """File-backed token stream (a binary int32 file), windowed batches:
+    batch t takes ``batch`` windows of ``seq`` tokens at offsets drawn
+    from (seed, t), labels the same windows one token on."""
+
+    def __init__(self, path: str, cfg: ModelConfig, batch: int, seq: int,
+                 seed: int = 0):
+        self.tokens = np.memmap(path, dtype=np.int32, mode="r")
+        self.cfg, self.batch, self.seq, self.seed = cfg, batch, seq, seed
+        self.step = 0
+        self.n_windows = max(1, (len(self.tokens) - 1) // seq)
+
+    def batch_at(self, t: int) -> Dict[str, np.ndarray]:
+        rng = np.random.default_rng(np.random.SeedSequence([self.seed, t]))
+        idx = rng.integers(0, self.n_windows, size=(self.batch,))
+        S = self.seq
+        toks = np.stack([self.tokens[i * S:(i + 1) * S] for i in idx])
+        labels = np.stack([self.tokens[i * S + 1:(i + 1) * S + 1]
+                           for i in idx])
+        pos = np.broadcast_to(np.arange(S, dtype=np.int32),
+                              (self.batch, S)).copy()
+        return {"tokens": toks.astype(np.int32),
+                "labels": labels.astype(np.int32), "positions": pos}
 
     def __iter__(self) -> Iterator[Tuple[int, Dict[str, np.ndarray]]]:
         while True:
@@ -64,11 +103,14 @@ class SyntheticLM:
 
 def host_tensors(batch: Dict[str, np.ndarray], pin: bool
                  ) -> Dict[str, torch.Tensor]:
-    """A numpy batch as int64 host tensors (indices for the embedding
-    gather and the CE pick), in pinned memory when ``pin``."""
+    """A numpy batch as host tensors, in pinned memory when ``pin``:
+    integer arrays as int64 (indices for the embedding gather and the CE
+    pick), float arrays (frames, patches) as they are."""
     out = {}
     for k, v in batch.items():
-        t = torch.from_numpy(np.ascontiguousarray(v)).long()
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        if not t.is_floating_point():
+            t = t.long()
         out[k] = t.pin_memory() if pin else t
     return out
 

@@ -97,10 +97,12 @@ def main(argv=None, cfg: Optional[ModelConfig] = None) -> Dict[str, Any]:
     cfg = model.cfg
     group, n_groups = arch_group(cfg)
     stashed = n_groups if model.runtime.offloads else 0
+    # an encoder-decoder's encoder layers are wrapped (stashed) too
+    subs = stashed * len(group) + (cfg.encoder_layers if stashed else 0)
     print(f"model: {cfg.name} {cfg.num_layers}L d_model={cfg.d_model} "
           f"{cfg.dtype} on {model.device}; tier "
           f"{model.runtime.tier.describe()}, {stashed} of {n_groups} "
-          f"layer groups stashed ({stashed * len(group)} sub-layers); "
+          f"layer groups stashed ({subs} sub-layers); "
           f"batch {source.batch} x {source.seq}", flush=True)
     history: List[Dict[str, float]] = []
     data = Prefetcher(source, model.device)

@@ -8,12 +8,15 @@
 * :func:`prefix_prefill_attention` — a prefix-sharing admission's suffix
   prefill: several tokens against a cache whose first rows were grafted
   from shared (or forked) pages.
-* :func:`attention_block` — projections + RoPE + attend + output
-  projection, with the serving cache branches: prefill writes the prompt's
-  rows, a suffix prefill (``prefix_attend``) the suffix's rows at
-  ``cache_index``, decode writes one row, and the paged branch writes the step's row
-  straight into its page frame and attends over the page pool through the
-  paged-attention kernel (``kernels/ops.paged_attention``).
+* :func:`attention_block` — projections + RoPE (M-RoPE for qwen2-vl) +
+  attend + output projection, with the serving cache branches: prefill
+  writes the prompt's rows, a suffix prefill (``prefix_attend``) the
+  suffix's rows at ``cache_index``, decode writes one row, and the paged
+  branch writes the step's row straight into its page frame and attends
+  over the page pool through the paged-attention kernel
+  (``kernels/ops.paged_attention``).
+* :func:`cross_attention_block` / :func:`encode_cross_kv` — whisper's
+  decoder attending over the encoder's states.
 
 Cache writes are in place: the cache tensors handed in are the storage
 (where the reference returns updated arrays from donated buffers).  Masks
@@ -155,11 +158,19 @@ def attention_block(params: dict, ctx: ModelContext, x: torch.Tensor,
                     positions: torch.Tensor, *, causal: bool = True,
                     cache: Optional[Cache] = None,
                     cache_index: Optional[int] = None,
+                    kv_x: Optional[torch.Tensor] = None,
+                    use_rope: bool = True,
                     prefix_attend: bool = False,
                     paged: Optional[dict] = None
                     ) -> Tuple[torch.Tensor, Optional[Cache]]:
     """Full attention sub-block; returns ``(out, cache)`` (cache mutated in
     place).
+
+    ``kv_x``: the source of K/V when it is not ``x`` (cross-attention over
+    encoder states; no RoPE then).  ``use_rope=False``: no rotary
+    positions (whisper, which adds sinusoidal ones to its embeddings).
+    RoPE is M-RoPE over (3, B, S) positions when the configuration has
+    ``mrope_sections``.
 
     ``prefix_attend``: a prefix-sharing suffix prefill — the S tokens are
     the prompt's tail, written at ``cache_index``, and attend over the
@@ -175,16 +186,18 @@ def attention_block(params: dict, ctx: ModelContext, x: torch.Tensor,
     B, S, D = x.shape
     window = cfg.window if cfg.attention == "swa" else 0
 
+    src = x if kv_x is None else kv_x
     q = x @ params["wq"]
-    k = x @ params["wk"]
-    v = x @ params["wv"]
+    k = src @ params["wk"]
+    v = src @ params["wv"]
     if "bq" in params:
         q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
     q = q.reshape(B, S, H, hd)
-    k = k.reshape(B, S, K, hd)
-    v = v.reshape(B, S, K, hd)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    k = k.reshape(B, src.shape[1], K, hd)
+    v = v.reshape(B, src.shape[1], K, hd)
+    if use_rope and kv_x is None:
+        q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+        k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
 
     if cache is not None and paged is not None:
         assert S == 1, "paged decode is single-token"
@@ -215,21 +228,67 @@ def attention_block(params: dict, ctx: ModelContext, x: torch.Tensor,
         else:
             o = blockwise_attention(q, k, v, causal=causal, window=window,
                                     softcap=cfg.logit_softcap)
-    elif cfg.logit_softcap > 0:
-        raise NotImplementedError(
-            "training attention runs the flash kernel, which has no "
-            "softcap (nor has the reference's); no configuration sets one")
     else:
-        # training: the flash forward on (B, H, S, d) views of the
-        # projections (no transpose copy), backward through the blockwise
-        # twin
-        from repro_torch.kernels import ops as kops
-        o = kops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                 v.transpose(1, 2), causal,
-                                 window).transpose(1, 2)
+        o = _attend_uncached(ctx, q, k, v, causal, window)
 
     out = o.reshape(B, S, H * hd) @ params["wo"]
     return out, cache
+
+
+def _attend_uncached(ctx: ModelContext, q, k, v, causal: bool,
+                     window: int) -> torch.Tensor:
+    """Attention without a cache: in training the flash forward on (B, H,
+    S, d) views of the projections (no transpose copy), backward through
+    the blockwise twin; serving (whisper's encoder) the plain blockwise
+    attention, as the reference runs XLA's there."""
+    cfg = ctx.cfg
+    if ctx.mode != "train":
+        return blockwise_attention(q, k, v, causal=causal, window=window,
+                                   softcap=cfg.logit_softcap)
+    if cfg.logit_softcap > 0:
+        raise NotImplementedError(
+            "training attention runs the flash kernel, which has no "
+            "softcap (nor has the reference's); no configuration sets one")
+    from repro_torch.kernels import ops as kops
+    return kops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2), causal,
+                                window).transpose(1, 2)
+
+
+def cross_attention_block(params: dict, ctx: ModelContext, x: torch.Tensor,
+                          *, enc_kv: Cache) -> torch.Tensor:
+    """Cross-attention against projected encoder K/V (whisper's decoder).
+
+    enc_kv: ``{"k": (B, T_enc, K, hd), "v": ...}`` from
+    :func:`encode_cross_kv`, or the cache's ``ck`` / ``cv``.  A decode
+    step attends over every encoder row; a prompt or a training sequence
+    attends non-causally (the flash forward in training)."""
+    cfg = ctx.cfg
+    H, hd = cfg.num_heads, cfg.resolved_head_dim
+    B, S, _ = x.shape
+    q = x @ params["wq"]
+    if "bq" in params:
+        q = q + params["bq"]
+    q = q.reshape(B, S, H, hd)
+    kc, vc = enc_kv["k"], enc_kv["v"]
+    if S == 1:
+        o = decode_attention(q, kc, vc, kc.shape[1] - 1,
+                             softcap=cfg.logit_softcap)
+    else:
+        o = _attend_uncached(ctx, q, kc, vc, False, 0)
+    return o.reshape(B, S, H * hd) @ params["wo"]
+
+
+def encode_cross_kv(params: dict, cfg: ModelConfig, enc_out: torch.Tensor
+                    ) -> Cache:
+    """Project encoder states to cross K/V once (reused by every step)."""
+    K, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    B, T, _ = enc_out.shape
+    k = enc_out @ params["wk"]
+    v = enc_out @ params["wv"]
+    if "bk" in params:
+        k, v = k + params["bk"], v + params["bv"]
+    return {"k": k.reshape(B, T, K, hd), "v": v.reshape(B, T, K, hd)}
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, seq: int, dtype, device

@@ -7,6 +7,7 @@ weights stored ``(d_in, d_out)``, norm scales in float32).
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, Optional, Tuple
 
 import torch
@@ -101,23 +102,47 @@ def embed_init(gen: torch.Generator, vocab: int, d: int, dtype, device
 
 
 # ---------------------------------------------------------------------------
-# RoPE (M-RoPE comes with the VLM family)
+# RoPE (+ M-RoPE for qwen2-vl) and sinusoidal positions (whisper)
 def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
     half = head_dim // 2
     exps = torch.arange(0, half, dtype=torch.float32, device=device) / half
     return 1.0 / (theta ** exps)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
-               ) -> torch.Tensor:
-    """x: (B, S, H, hd); positions: (B, S)."""
-    ang = positions[..., None].float() * rope_freqs(x.shape[-1], theta,
-                                                    x.device)
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               mrope_sections: Tuple[int, ...] = ()) -> torch.Tensor:
+    """x: (B, S, H, hd); positions: (B, S), or (3, B, S) for M-RoPE, whose
+    ``mrope_sections`` (summing to hd / 2) take their angles' positions
+    from the temporal, height and width axes in turn."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    if mrope_sections:
+        if positions.ndim != 3 or sum(mrope_sections) != x.shape[-1] // 2:
+            raise ValueError(f"M-RoPE needs (3, B, S) positions and "
+                             f"sections summing to {x.shape[-1] // 2}: "
+                             f"{tuple(positions.shape)}, {mrope_sections}")
+        pos = torch.cat([positions[i][..., None].expand(
+            *positions.shape[1:], sec) for i, sec in
+            enumerate(mrope_sections)], dim=-1)          # (B, S, hd/2)
+        ang = pos.float() * freqs
+    else:
+        ang = positions[..., None].float() * freqs        # (B, S, hd/2)
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_pos(seq: int, d: int, device, offset: int = 0
+                   ) -> torch.Tensor:
+    """(seq, d) float32 sinusoidal encoding of positions ``offset ..
+    offset + seq - 1`` (whisper's encoder frames and decoder tokens)."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device) + offset
+    half = d // 2
+    freq = torch.exp(-math.log(10_000.0) * torch.arange(
+        half, dtype=torch.float32, device=device) / max(half - 1, 1))
+    ang = pos[:, None] * freq[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 # ---------------------------------------------------------------------------

@@ -61,11 +61,15 @@ class Model:
     def loss_fn(self, params: Params, batch: Dict[str, torch.Tensor]
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """(total loss, metrics): chunked CE over the tied table, labels
-        < 0 masked, plus ``AUX_WEIGHT`` x the layers' aux loss."""
+        < 0 masked, plus ``AUX_WEIGHT`` x the layers' aux loss.  The
+        batch's ``frames`` (encoder-decoder) or ``patches`` (VLM) feed
+        the frontend; M-RoPE ``positions`` are (3, B, S)."""
         cfg = self.cfg
         ctx = self.ctx("train")
         h, aux = tfm.forward_train(params, ctx, batch["tokens"],
-                                   batch["positions"])
+                                   batch["positions"],
+                                   frames=batch.get("frames"),
+                                   patches=batch.get("patches"))
         table = params["embed"] if cfg.tie_embeddings else params["unembed"]
         labels = batch["labels"]
         mask = (labels >= 0).float()
@@ -83,12 +87,15 @@ class Model:
         """Process the prompt into ``caches`` (in place); returns
         (last-token logits (B, V), caches).  ``prefix_attend``: the tokens
         are a prompt's suffix, written at ``cache_index`` over the prefix
-        rows already in ``caches`` (a prefix-sharing admission)."""
+        rows already in ``caches`` (a prefix-sharing admission).  The
+        batch's ``frames`` / ``patches`` go to ``forward_serve``."""
         ctx = self.ctx("prefill")
         h, caches = tfm.forward_serve(params, ctx, batch["tokens"],
                                       batch["positions"], caches,
                                       cache_index=cache_index,
-                                      prefix_attend=prefix_attend)
+                                      prefix_attend=prefix_attend,
+                                      frames=batch.get("frames"),
+                                      patches=batch.get("patches"))
         return tfm.unembed(params, ctx, h[:, -1:, :])[:, 0, :], caches
 
     @torch.no_grad()
@@ -96,8 +103,8 @@ class Model:
                     positions: torch.Tensor, caches: Params, index: int,
                     paged: Optional[dict] = None
                     ) -> Tuple[torch.Tensor, Params]:
-        """One decode step: token (B, 1); ``index`` tokens already cached.
-        ``paged``: decode in place over a page pool (see
+        """One decode step: token (B, 1), positions (B, 1) or (3, B, 1);
+        ``index`` tokens already cached.  ``paged``: decode in place over a page pool (see
         ``models/attention.attention_block``)."""
         ctx = self.ctx()
         h, caches = tfm.forward_serve(params, ctx, token, positions, caches,

@@ -185,15 +185,21 @@ class Engine:
                        length: int) -> list:
         """Copies of what a decode step at ``length`` must not change for
         the slots outside ``mask``: row ``length`` of their k/v leaves,
-        the whole of every other (slot-shaped) leaf; :meth:`_restore` puts
-        them back."""
+        the whole of every other (slot-shaped) leaf but the cross-attention
+        cache, which no decode step writes; :meth:`_restore` puts them
+        back."""
         leaves, paths = tree.flatten(caches)
         if not leaves:
             return []
         keep = torch.as_tensor(np.flatnonzero(~mask), device=self.device)
-        where = [(slice(None), keep, length) if path[-1] in tfm.PAGED_KEYS
-                 else (slice(None), keep) for path in paths]
-        return [(c, w, c[w].clone()) for c, w in zip(leaves, where)]
+        saved = []
+        for c, path in zip(leaves, paths):
+            if path[-1] in tfm.CROSS_KEYS:
+                continue
+            w = ((slice(None), keep, length) if path[-1] in tfm.PAGED_KEYS
+                 else (slice(None), keep))
+            saved.append((c, w, c[w].clone()))
+        return saved
 
     @staticmethod
     def _restore(saved: list) -> None:
@@ -228,7 +234,9 @@ class Engine:
                               kq=cache.cpool[g]["k"], vq=cache.cpool[g]["v"],
                               ks=cache.cscale[g]["k"], vs=cache.cscale[g]["v"])
                       for g in cache.pool}
-            caches.update(cache.slot_tree)
+            # a group may hold both (whisper: paged k/v, slot-shaped ck/cv)
+            for g, leaves in cache.slot_tree.items():
+                caches.setdefault(g, {}).update(leaves)
             logits, _ = self.model.decode_step(
                 self.params, tok, pos, caches, length,
                 paged=dict(page_map=cache.page_map(),
@@ -467,8 +475,13 @@ class Engine:
 
     # ------------------------------------------------------------------
     def _positions(self, S: int, offset: int, batch: int) -> torch.Tensor:
-        return torch.arange(offset, offset + S,
-                            device=self.device)[None].expand(batch, S)
+        """(batch, S) positions ``offset ..``; (3, batch, S) with three
+        equal axes for an M-RoPE model (text positions), as the
+        reference's engine gives."""
+        pos = torch.arange(offset, offset + S, device=self.device)
+        if self.model.cfg.mrope_sections:
+            return pos[None, None].expand(3, batch, S)
+        return pos[None].expand(batch, S)
 
     def run(self, max_steps: int = 10_000) -> List[Request]:
         for _ in range(max_steps):
