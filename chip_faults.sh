@@ -40,10 +40,13 @@ MIXTRAL='check_mixtral_serve_logits()'
 # paged decode at G 6, head_dim 128), whisper training in float32 at 6
 # encoder and 6 decoder layers (the flash forward non-causal over 1500
 # frames), whisper serving (the kernel path against the gather path)
+# phase 13's comparison (full-width smollm served by a prefill / decode
+# pair, gather path and kernel, against the colocated engine)
+DISAGG='check_disagg_logits()'
 QWEN='check_qwen2vl_serve_logits()'
 WHISPER_TRAIN='check_train_whisper_vs_plain()'
 WHISPER_SERVE='check_whisper_serve_logits()'
-SHOW='main path logits|reciprocal probe|paged_decode_attention (float|bfloat)|ssd_scan rounding probe|flash_attention_fwd (float|bfloat)|training, |bit-exact|  ssd_scan (float|bfloat)|(mamba2|zamba2|mixtral|qwen2-vl|whisper) logits|    (scan kernel|paged decode|plain bf16|kernel path)|gemm_os (float|bfloat)|gemm path|of the slots outside|    limits: |    limits \(max|    sharing |    int8, |danube at |MoE blocks|FAILED'
+SHOW='disagg logits|    pair, |main path logits|reciprocal probe|paged_decode_attention (float|bfloat)|ssd_scan rounding probe|flash_attention_fwd (float|bfloat)|training, |bit-exact|  ssd_scan (float|bfloat)|(mamba2|zamba2|mixtral|qwen2-vl|whisper) logits|    (scan kernel|paged decode|plain bf16|kernel path)|gemm_os (float|bfloat)|gemm path|of the slots outside|    limits: |    limits \(max|    sharing |    int8, |danube at |MoE blocks|FAILED'
 ONLY=" $* "
 
 fault() {   # name, file (from the checkout's root), sed expression, checks
@@ -253,3 +256,16 @@ fault prefix_scatter_shared src/repro_torch/serve/engine.py \
 fault side_scale_of_neighbour src/repro_torch/serve/cache_manager.py \
   's/            store\[:, ci\] = scale/            store[:, (ci + 1) % store.shape[1]] = scale/' \
   "$DANUBE"
+# an adopted handoff's pages land one frame late: page 0 twice, the last
+# page lost.  (Landing them in reverse order is no fault a check can see:
+# RoPE is applied before the write, and attention over whole pages a
+# decode query sees is invariant to their order)
+fault adopt_page_shifted src/repro_torch/serve/cache_manager.py \
+  's/zip(pids, queue.fetch_pages(handoff))/zip(pids, (lambda p: p[:1] + p[:-1])(queue.fetch_pages(handoff)))/' \
+  "$DISAGG"
+# the prefill role ships one page short: the decode role grows the
+# session into a fresh frame for it (stale rows), and the byte check holds
+# (page bytes x shipped pages)
+fault publish_last_page_dropped src/repro_torch/serve/engine.py \
+  's/pages_for(sess.length, self._page_size))/pages_for(sess.length, self._page_size) - 1)/' \
+  "$DISAGG"

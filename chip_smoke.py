@@ -191,10 +191,29 @@ Phases (each failure exits non-zero; nothing is caught and carried on):
               in-place decode: ROADMAP C10), bf16 and float32; then the
               counted run.  No engine path feeds frames or patches, in
               the reference either.
+13. disagg  — serves full-width smollm-135m (bf16) disaggregated
+              through ``repro_torch.launch.serve --role both``: a prefill
+              engine of one monolithic slot prefills one prompt a step
+              and publishes its KV pages to a transfer queue, a decode
+              engine adopts them into phase 4's overcommitted pool and
+              decodes on the paged decode kernel (passed through
+              ``build_engine``, as the reference's build_disagg passes
+              it; the command line refuses it beside ``--role``).  Six
+              comparison runs of 8 requests, raw spill, every run on the
+              first's tokens: the colocated engine and the pair over a
+              host transfer tier on the gather path and on the kernel, in
+              bfloat16 and float32; the streams each pair path shares
+              with the colocated run are counted and every stream's
+              logits held to a share of the colocated bf16 vs f32
+              distance.  Then the counted run: 16 requests over a spill
+              transfer tier with the int8 spill.  Every run fails on
+              ``kv_publish`` bytes other than page bytes x shipped pages
+              (368,640 B a page at 30 layers), a handoff lost or adopted
+              twice, or a payload left in the transfer tier.
 
 Each phase prints its wall time, and the script its whole.  The line
 before the last is a JSON object with one entry per kernel (its launches
-summed over the counted runs of phases 3 to 12, and per run); the last
+summed over the counted runs of phases 3 to 13, and per run); the last
 line is ``{"ok": true, "device": {...}}``.
 """
 import gc
@@ -449,6 +468,16 @@ DANUBE_F32_SHARE, DANUBE_BF16_SHARE = 0.02, 1.5
 # 1.75 / 0.315
 DANUBE_CMP_LAYERS = 8
 DANUBE_INT8_ARGS, DANUBE_INT8_UNSHARED_ARGS = DANUBE_ARGS, DANUBE_ARGS[:-1]
+# Since phase 13 the comparison runs take the first 8 of the 16 requests
+# (the readings above are from all 16; phase 13 is paid for here): on the
+# smoke twin, whose page schedule depends only on lengths, sharing still
+# hits 140 pages and forks 7, 6 pages are evicted (and adopted compressed,
+# int8) with sharing and 1757 without.  The counted run serves all 16
+DANUBE_CMP_ARGS, DANUBE_CMP_UNSHARED_ARGS, DANUBE_INT8_ARGS, \
+    DANUBE_INT8_UNSHARED_ARGS = (
+        argv + ["--requests", "8"] for argv in (
+            DANUBE_CMP_ARGS, DANUBE_CMP_UNSHARED_ARGS, DANUBE_INT8_ARGS,
+            DANUBE_INT8_UNSHARED_ARGS))
 DANUBE_INT8_SHARE = 1.5
 
 # mixtral-8x7b (phase 11): full width (d 4096, 32 query heads of 128 over 8
@@ -552,6 +581,51 @@ WHISPER_ARGS = ["--arch", "whisper-medium", "--device", "cuda", "--seed",
 WHISPER_GATHER_ARGS = WHISPER_ARGS[:-1]
 WHISPER_CROSS_BYTES = WHISPER_LAYERS * 2 * WHISPER_FRAMES * 16 * 64 * 2
 WHISPER_LOGIT_F32_SHARE = 0.02
+
+# disaggregated serving (phase 13): phase 4's settings through a prefill /
+# decode pair (``--role both``): prompts prefill one a step in a prefill
+# engine's one monolithic slot, their KV pages ship through a transfer
+# tier, and a decode engine adopts them into phase 4's overcommitted pool
+# (int8 spill, fair preemption every 16 tokens).  The command line refuses
+# --decode-kernel beside --role; the kernel path reaches the decode engine
+# through ``build_engine``'s keyword, as the reference's build_disagg
+# passes it.  The comparisons run 8 requests through the colocated engine
+# (phase 4's, kernel decode) and the pair over a host transfer tier on the
+# gather path and on the kernel, in bfloat16 and with the weights in
+# float32, every run on the first's tokens.  The pair prefills one prompt
+# a step, so its decode batches may form otherwise than the colocated
+# engine's and cuBLAS may pick other kernels for them: streams are
+# counted, not required equal, and every stream's logits are held to a
+# share of the colocated pair's bf16 vs f32 distance (bfloat16 1.5 of it,
+# as phase 10; float32 1/50, as phases 8 and 10).  The pair's adoptions
+# also fill the pool on another schedule than the colocated admissions,
+# so other pages are evicted: on the smoke twin through the int8 codec the
+# float32 pair differed from the colocated run by 0.9 of the bf16 vs f32
+# distance, codec error and not arithmetic.  So the comparison runs spill
+# raw pages (as phase 10's); the counted run keeps the int8 spill.  On an
+# H100 (700 W) at 30 layers the colocated bf16 vs f32 distance read
+# 0.0544 / 0.0089; the pair on the kernel streamed bit for bit what the
+# colocated engine did in both dtypes (8 of 8 streams, 0 apart); on the
+# gather path 0 of 8 streams in bf16 (0.0469 / 0.0076: kernel against
+# plain decode) and 8 of 8 in f32 (2.6e-6).  Adopted pages landing one
+# frame late read 1.21 / 0.22, a handoff one page short 1.50 / 0.28
+_KERNEL = MAIN_ARGS.index("--decode-kernel")
+_CODEC = MAIN_ARGS.index("--page-codec")
+DISAGG_GATHER_ARGS = MAIN_ARGS[:_KERNEL] + MAIN_ARGS[_KERNEL + 1:] + [
+    "--role", "both"]
+DISAGG_COLO_CMP_ARGS = MAIN_ARGS[:_CODEC] + MAIN_ARGS[_CODEC + 2:] + [
+    "--requests", "8"]
+DISAGG_CMP_ARGS = [a for i, a in enumerate(DISAGG_GATHER_ARGS)
+                   if i not in (_CODEC, _CODEC + 1)] + [
+    "--requests", "8", "--transfer-tier", "host"]
+DISAGG_ARGS = DISAGG_GATHER_ARGS + ["--transfer-tier", "spill"]
+# the comparisons took 111 s at 30 layers on an H100 (700 W), so the
+# counted run serves at 10 of the 30 (as phase 4's)
+DISAGG_CMP_LAYERS, DISAGG_COUNT_LAYERS = 30, 10
+DISAGG_BF16_SHARE, DISAGG_F32_SHARE = 1.5, 0.02
+# one smollm page a layer: k and v, 16 rows of 3 kv heads of 64 (x 2 B in
+# bf16: 368,640 B a page at 30 layers)
+SMOLLM_PAGE_LAYER_ELEMS = 2 * 16 * 3 * 64
 
 
 def cut(arch: str, layers: int):
@@ -2531,7 +2605,7 @@ def danube_serve_run(argv, dtype: str, forced=None, cfg=None):
     args = serve.parse_args(argv)
     eng = serve.build_engine(args, dtype=dtype, cfg=cfg)
     cache = eng.cache
-    rows, logits_by, tokens_by = deque(), {}, {}
+    rows = deque()
     stats = {"shared_writes": 0, "suffix": 0, "decodes": 0,
              "peak_held": 0, "peak_frames": 0}
     sample, decode, step = eng._sample, eng._decode, eng.step
@@ -2573,14 +2647,8 @@ def danube_serve_run(argv, dtype: str, forced=None, cfg=None):
     eng._prefill_suffix = spy_suffix
     tfm.scatter_pages = spy_scatter
     try:
-        for sess in serve.submit_requests(eng, args, {}):
-            def emit(tok, sess=sess, orig=sess.emit):
-                key = (sess.uid, len(sess.tokens))
-                logits_by[key] = rows.popleft()
-                tok = forced[key] if forced is not None else tok
-                tokens_by[key] = tok
-                orig(tok)
-            sess.emit = emit
+        logits_by, tokens_by = keyed_emits(
+            serve.submit_requests(eng, args, {}), rows, forced)
         eng.run()
     finally:
         tfm.scatter_pages = scatter
@@ -2593,6 +2661,24 @@ def danube_serve_run(argv, dtype: str, forced=None, cfg=None):
                  forks=report["prefix"]["forks"])
     torch.cuda.synchronize()
     return logits_by, tokens_by, stats
+
+
+def keyed_emits(sessions, rows, forced):
+    """Key every sampled row by (request uid, token index): each session's
+    ``emit`` takes the next row of ``rows`` (the sampler's spy appends its
+    logits there, one row a token emitted in order) and, with ``forced``
+    (another run's tokens by key), emits that run's token instead of its
+    own.  Returns the dicts of logits and tokens, filled as the run goes."""
+    logits_by, tokens_by = {}, {}
+    for sess in sessions:
+        def emit(tok, sess=sess, orig=sess.emit):
+            key = (sess.uid, len(sess.tokens))
+            logits_by[key] = rows.popleft()
+            tok = forced[key] if forced is not None else tok
+            tokens_by[key] = tok
+            orig(tok)
+        sess.emit = emit
+    return logits_by, tokens_by
 
 
 def keyed_gap(got, want, label):
@@ -2898,6 +2984,171 @@ def check_whisper_serve_main_path():
     return launches
 
 
+def disagg_serve_run(argv, dtype: str, forced=None, cfg=None,
+                     **engine_kwargs):
+    """Drive the serving path ``argv`` describes (colocated, or a prefill /
+    decode pair with ``--role both``; fresh model from the same seed, its
+    weights in ``dtype``; ``cfg``: a cut depth; ``engine_kwargs`` to the
+    (decode) engine).  Returns the logits of every sampled token keyed by
+    (request uid, token index), the tokens, and the engine or pair.  With
+    ``forced`` (another run's tokens, by key) the sessions emit those:
+    the page schedule depends only on lengths, so the runs then hold the
+    same sequences and their logits differ by arithmetic only; each run's
+    own argmax says where its greedy stream would have left them."""
+    from collections import deque
+    from repro_torch.launch import serve
+    args = serve.parse_args(argv)
+    eng = serve.build_engine(args, dtype=dtype, cfg=cfg, **engine_kwargs)
+    rows = deque()
+    for e in (eng.prefill, eng.decode) if args.role else (eng,):
+        def spy_sample(logits, sample=e._sample):
+            rows.extend(logits.float())
+            return sample(logits)
+        e._sample = spy_sample
+    logits_by, tokens_by = keyed_emits(serve.submit_requests(eng, args, {}),
+                                       rows, forced)
+    eng.run()
+    if rows:
+        fail(f"{len(rows)} sampled rows were never emitted")
+    torch.cuda.synchronize()
+    return logits_by, tokens_by, eng
+
+
+def check_transfer(label, pair, n_requests, layers, itemsize=2):
+    """A drained pair lost no handoff and adopted none twice (every
+    request published once, each publish adopted once, ``claim`` never
+    aliases), moved page bytes x shipped pages on both legs and left no
+    payload in the transfer tier.  Returns the queue's counters."""
+    rep = pair.transfer.traffic_report()
+    tq = rep["transfer"]
+    pub, adopt = rep.get("kv_publish", {}), rep.get("kv_adopt", {})
+    page = SMOLLM_PAGE_LAYER_ELEMS * layers * itemsize
+    want = page * tq["shipped_pages"]
+    print(f"  {label} transfer[{rep['tier']}]: {tq['published']} handoffs "
+          f"shipped ({tq['shipped_pages']} pages), {tq['adopted_pages']} "
+          f"pages adopted, {tq['requeued']} requeued; kv_publish "
+          f"{pub.get('wire_bytes')} B / {pub.get('calls')} calls, kv_adopt "
+          f"{adopt.get('wire_bytes')} B / {adopt.get('calls')} calls "
+          f"({page} B a page)", flush=True)
+    if pub.get("wire_bytes") != want:
+        fail(f"{label}: kv_publish moved {pub.get('wire_bytes')} B; want "
+             f"{page} B x {tq['shipped_pages']} shipped pages")
+    if any(adopt.get(k) != pub.get(k) for k in ("wire_bytes", "calls")):
+        fail(f"{label}: kv_adopt {adopt} differs from kv_publish {pub}")
+    if not (tq["published"] == n_requests == tq["delivered"] - tq["requeued"]
+            == pair.decode.cache.table.adoptions) \
+            or tq["adopted_pages"] != tq["shipped_pages"] or tq["depth"]:
+        fail(f"{label}: a handoff was lost or adopted twice: {tq}, "
+             f"{pair.decode.cache.table.adoptions} adoptions")
+    tier = pair.transfer.runtime.tier
+    left = [getattr(tier, k) for k in ("_primary_used", "_overflow_used")
+            if hasattr(tier, k)]
+    if any(left):
+        fail(f"{label}: {left} B left in the transfer tier")
+    return tq
+
+
+def check_disagg_logits() -> None:
+    """Phase 13's comparison (``DISAGG_CMP_LAYERS``): the colocated engine
+    and the pair on the gather path and on the kernel, 8 requests, in
+    bfloat16 and with the weights in float32, every run on the first's
+    tokens; per dtype, the streams each pair path shares with the
+    colocated run, and every stream's logits held to its share of the
+    colocated bf16 vs f32 distance."""
+    cfg = cut("smollm-135m", DISAGG_CMP_LAYERS)
+    paths = {"colocated": (DISAGG_COLO_CMP_ARGS, {}),
+             "pair, gather": (DISAGG_CMP_ARGS, {}),
+             "pair, kernel": (DISAGG_CMP_ARGS, {"decode_kernel": True})}
+    runs, forced = {}, None
+    for name, (argv, kw) in paths.items():
+        for dtype in ("bfloat16", "float32"):
+            runs[name, dtype], toks, eng = disagg_serve_run(
+                argv, dtype, forced, cfg=cfg, **kw)
+            forced = forced or toks
+            if name != "colocated":
+                check_transfer(f"disagg {name}, {dtype}", eng, 8,
+                               DISAGG_CMP_LAYERS,
+                               torch.finfo(getattr(torch, dtype)).bits // 8)
+                rep = eng.decode.traffic_report()
+                print(f"  disagg {name}, {dtype}: decode pages "
+                      f"{rep['pages']}, compressed adoptions "
+                      f"{rep['decode_io']['compressed_adopts']}", flush=True)
+                if rep["pages"]["evictions"] <= 0:
+                    fail(f"disagg {name}, {dtype}: the decode pool must "
+                         "evict")
+            del eng
+            free_device_memory()
+    rounding = keyed_gap(runs["colocated", "bfloat16"],
+                         runs["colocated", "float32"], "disagg")
+    top = max(w.abs().max().item() for w in runs["colocated",
+                                                 "bfloat16"].values())
+    print(f"  disagg logits over {len(forced)} sampled tokens, |logits| "
+          f"max {top:.3g}: colocated bf16 vs f32 max abs err "
+          f"{rounding[0]:.4g}, worst row's mean {rounding[1]:.3g}, argmax "
+          f"agreement {rounding[2]}", flush=True)
+    uids = sorted({uid for uid, _ in forced})
+    for name in ("pair, gather", "pair, kernel"):
+        for dtype, share in (("bfloat16", DISAGG_BF16_SHARE),
+                             ("float32", DISAGG_F32_SHARE)):
+            got, want = runs[name, dtype], runs["colocated", dtype]
+            keyed_gap(got, want, f"disagg {name}, {dtype}")   # same keys
+            same, worst = 0, (0.0, 0.0)
+            for uid in uids:
+                keys = [k for k in want if k[0] == uid]
+                gap = keyed_gap({k: got[k] for k in keys},
+                                {k: want[k] for k in keys}, "disagg")
+                same += gap[2] == f"{len(keys)}/{len(keys)}"
+                worst = tuple(max(a, b) for a, b in zip(worst, gap[:2]))
+            limit = tuple(share * d for d in rounding[:2])
+            print(f"    {name} vs colocated, {dtype}: {same} of "
+                  f"{len(uids)} streams identical; worst stream max abs "
+                  f"err {worst[0]:.4g}, worst row's mean {worst[1]:.3g} "
+                  f"(limit {share} x the distance: {limit[0]:.4g}, "
+                  f"{limit[1]:.3g})", flush=True)
+            if worst[0] > limit[0] or worst[1] > limit[1]:
+                fail(f"disagg logits, {name}, {dtype}: beyond {share} x "
+                     f"{rounding[:2]}")
+
+
+def check_disagg_serve_main_path():
+    """Phase 13's counted run at ``DISAGG_COUNT_LAYERS``: 16 requests over
+    a spill transfer tier to the kernel decode; every request finishes,
+    the transfer checks hold (``check_transfer``), pages are evicted and
+    resumed compressed, the paged decode launches once a layer a decode
+    call and the codec once a page."""
+    from repro_torch.launch import serve
+    layers = DISAGG_COUNT_LAYERS
+    pair, launches = counted(lambda: serve.main(
+        DISAGG_ARGS, cfg=cut("smollm-135m", layers), decode_kernel=True))
+    print(f"  launches on the disaggregated serving path: {launches}",
+          flush=True)
+    sessions = pair.sessions
+    if len(sessions) != 16 or any(s.finish_reason != "length"
+                                  or len(s.result()) != 64
+                                  for s in sessions):
+        fail("disagg: not every request finished with 64 tokens: " + str(
+            [(s.uid, s.finish_reason, len(s.result())) for s in sessions]))
+    vocab = pair.model.cfg.vocab_size
+    if any(not 0 <= t < vocab for s in sessions for t in s.result()):
+        fail("disagg: a generated token lies outside the vocabulary")
+    check_transfer("disagg", pair, 16, layers)
+    report = pair.decode.traffic_report()
+    steps = report["decode_io"]["steps"]
+    print(f"  disagg decode pages {report['pages']}; compressed adoptions "
+          f"{report['decode_io']['compressed_adopts']}; preemptions "
+          f"{sum(s.preemptions for s in sessions)}", flush=True)
+    if report["pages"]["evictions"] <= 0 or \
+            report["decode_io"]["compressed_adopts"] <= 0:
+        fail("the disagg decode pool must evict pages and resume some "
+             "compressed")
+    if launches["paged_decode_attention"] != layers * steps:
+        fail(f"paged_decode_attention launched "
+             f"{launches['paged_decode_attention']} times in {steps} decode "
+             f"calls; want {layers} each")
+    check_page_launches("disagg", report, launches)
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a GPU")
@@ -3047,6 +3298,13 @@ def main() -> None:
           "bf16, int8 spill, parked cross caches)")
     check_whisper_serve_logits()
     by_path["serve_whisper"] = check_whisper_serve_main_path()
+    free_device_memory()
+    phase(f"phase 13: disaggregated serving (full-width smollm-135m, bf16, "
+          f"a prefill / decode pair over a transfer tier; comparisons at "
+          f"{DISAGG_CMP_LAYERS} of 30 layers, the counted run at "
+          f"{DISAGG_COUNT_LAYERS})")
+    check_disagg_logits()
+    by_path["serve_disagg"] = check_disagg_serve_main_path()
     phase("done")
     print(f"  whole script: {time.perf_counter() - t_start:.1f} s wall",
           flush=True)

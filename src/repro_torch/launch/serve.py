@@ -25,6 +25,16 @@ each kernel wrapper during the run (0 on the CPU, where every wrapper
 takes its plain version).  ``--tenant-quota`` caps what each tenant may
 hold (see serve/quota.parse_quota_spec for the grammar); ``--tenants N``
 spreads the synthetic requests over N tenant names.
+
+``--role`` disaggregates prefill from decode (serve/disagg.py): ``both``
+runs the two engines in this process — prompts prefill on a prefill-role
+engine, KV pages ship through the ``--transfer-tier`` (metered, printed as
+the transfer report beside the time to first token, which the prefill
+side emits), and a decode-role engine adopts them; ``prefill`` runs the
+prefill engine alone into a queue of ``--transfer-depth`` handoffs and
+reports what shipped.  A standalone ``decode`` role needs a peer feeding
+its queue, which this command does not start.  Omit ``--role`` for the
+colocated engine.
 """
 from __future__ import annotations
 
@@ -32,15 +42,16 @@ import argparse
 import dataclasses
 import logging
 import time
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 import torch
 
 from repro_torch.configs import MemoryPlan, RunConfig, get_arch
 from repro_torch.configs.base import ModelConfig, ShapeConfig
-from repro_torch.core.runtime import fmt_bytes
+from repro_torch.core.runtime import MemoryRuntime, fmt_bytes
 from repro_torch.models.model import build_model
+from repro_torch.serve.disagg import DisaggPair, TransferQueue, build_disagg
 from repro_torch.serve.engine import Engine, Request
 from repro_torch.serve.quota import quota_from_cli
 from repro_torch.serve.scheduler import build_scheduler, registered_schedulers
@@ -99,22 +110,47 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--deadline-slack", type=int, default=None,
                     help="per-request deadline = slack + (i+1)*new-tokens "
                          "engine steps (with --scheduler deadline)")
+    ap.add_argument("--role", default=None,
+                    choices=("prefill", "decode", "both"),
+                    help="disaggregate prefill/decode (both: the two "
+                         "engines in this process; default: colocated "
+                         "engine)")
+    ap.add_argument("--transfer-tier", default="spill",
+                    help="tier policy carrying KV handoffs between roles "
+                         "(spill: pooled HBM -> host; host: pinned host "
+                         "memory)")
+    ap.add_argument("--transfer-depth", type=int, default=None,
+                    help="max handoffs parked in the transfer queue "
+                         "(prefill admission stalls past it)")
     args = ap.parse_args(argv)
+    if args.role == "decode":
+        ap.error("--role decode needs a peer feeding the transfer queue; "
+                 "use --role both for the in-process loopback")
+    if args.role is not None and not args.page_size:
+        ap.error("--role ships page-shaped KV: pass --page-size")
     if args.decode_kernel and not args.page_size:
         ap.error("--decode-kernel reads through the page table: pass "
                  "--page-size")
     if args.prefix_share and not args.page_size:
         ap.error("--prefix-share reuses whole pages: pass --page-size")
+    if args.prefix_share and args.role is not None:
+        ap.error("--prefix-share is a colocated-engine feature for now")
+    if args.decode_kernel and args.role is not None:
+        ap.error("--decode-kernel is a colocated-engine feature for now")
     return args
 
 
 def build_engine(args: argparse.Namespace, dtype: Optional[str] = None,
-                 cfg: Optional[ModelConfig] = None) -> Engine:
-    """The model (random weights from ``--seed``) behind its engine;
-    ``dtype`` (e.g. "float32") overrides the configuration's.  ``cfg``
-    (no flag sets it) replaces ``--arch`` / ``--smoke``'s configuration,
-    e.g. one cut in depth with ``dataclasses.replace(cfg, num_layers=N)``
-    to fit a card."""
+                 cfg: Optional[ModelConfig] = None,
+                 **engine_kwargs) -> Union[Engine, DisaggPair]:
+    """The model (random weights from ``--seed``) behind its engine (with
+    ``--role both``, the prefill/decode pair); ``dtype`` (e.g. "float32")
+    overrides the configuration's.  ``cfg`` (no flag sets it) replaces
+    ``--arch`` / ``--smoke``'s configuration, e.g. one cut in depth with
+    ``dataclasses.replace(cfg, num_layers=N)`` to fit a card.
+    ``engine_kwargs`` (no flag sets them) go to the engine, or to the
+    pair's decode engine: ``decode_kernel=True`` there, which the command
+    line refuses beside ``--role``."""
     if cfg is None:
         cfg = get_arch(args.arch)
         if args.smoke:
@@ -128,13 +164,35 @@ def build_engine(args: argparse.Namespace, dtype: Optional[str] = None,
                         device=args.device)
     sched = (build_scheduler("fair", quantum=args.quantum)
              if args.scheduler == "fair" else build_scheduler(args.scheduler))
-    return Engine(model, model.init(args.seed), batch=args.batch,
+    params = model.init(args.seed)
+    quota = quota_from_cli(args.tenant_quota, args.page_codec)
+    if args.role == "both":
+        return build_disagg(model, params, batch=args.batch,
+                            max_len=args.max_len, page_size=args.page_size,
+                            pages=args.pages, transfer=args.transfer_tier,
+                            max_depth=args.transfer_depth,
+                            scheduler=args.scheduler, decode_scheduler=sched,
+                            spill=args.spill, quota=quota,
+                            temperature=args.temperature, seed=args.seed,
+                            **engine_kwargs)
+    if args.role == "prefill":
+        runtime = MemoryRuntime(
+            model.plan, MemoryPlan(policy=args.transfer_tier,
+                                   placement=model.memory.placement),
+            model.device)
+        return Engine(model, params, batch=args.batch, max_len=args.max_len,
+                      temperature=args.temperature, seed=args.seed,
+                      scheduler=sched, spill=None, page_size=args.page_size,
+                      quota=quota, role="prefill",
+                      transfer=TransferQueue(runtime,
+                                             max_depth=args.transfer_depth),
+                      **engine_kwargs)
+    engine_kwargs.setdefault("decode_kernel", args.decode_kernel)
+    return Engine(model, params, batch=args.batch,
                   max_len=args.max_len, temperature=args.temperature,
                   seed=args.seed, scheduler=sched, spill=args.spill,
-                  page_size=args.page_size, pages=args.pages,
-                  quota=quota_from_cli(args.tenant_quota, args.page_codec),
-                  decode_kernel=args.decode_kernel,
-                  prefix_share=args.prefix_share)
+                  page_size=args.page_size, pages=args.pages, quota=quota,
+                  prefix_share=args.prefix_share, **engine_kwargs)
 
 
 def submit_requests(eng: Engine, args: argparse.Namespace,
@@ -174,13 +232,31 @@ def kernel_launches() -> dict:
             "unpack": offload_pack.fp8_unpack.launches}
 
 
-def main(argv=None, cfg: Optional[ModelConfig] = None) -> Engine:
+def transfer_summary(queue: TransferQueue) -> str:
+    """The transfer report in one line: handoffs shipped, adopted and
+    requeued, and each leg's wire bytes and calls."""
+    rep = queue.traffic_report()
+    tq = rep["transfer"]
+    legs = ", ".join(
+        f"{d} {fmt_bytes(rep[d]['wire_bytes'])}/{rep[d]['calls']}x"
+        for d in ("kv_publish", "kv_adopt") if d in rep)
+    return (f"transfer[{queue.runtime.tier.describe()}]: "
+            f"{tq['published']} handoffs shipped "
+            f"({tq['shipped_pages']} pages), "
+            f"{tq['adopted_pages']} pages adopted, "
+            f"{tq['requeued']} requeued, {tq['swept']} swept, depth "
+            f"{tq['depth']}; {legs}")
+
+
+def main(argv=None, cfg: Optional[ModelConfig] = None,
+         **engine_kwargs) -> Union[Engine, DisaggPair]:
     """Serve the synthetic requests and print the summary; returns the
-    engine (its sessions and traffic report) for callers that check it.
-    ``cfg``: as :func:`build_engine`'s (the command line never sets it)."""
+    engine or the pair (its sessions and traffic report) for callers that
+    check it.  ``cfg`` and ``engine_kwargs``: as :func:`build_engine`'s
+    (the command line never sets them)."""
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO)
-    eng = build_engine(args, cfg=cfg)
+    eng = build_engine(args, cfg=cfg, **engine_kwargs)
     model, cfg = eng.model, eng.model.cfg
     print(eng.describe())
     print(f"model: {cfg.name} {cfg.num_layers}L d_model={cfg.d_model} "
@@ -206,7 +282,10 @@ def main(argv=None, cfg: Optional[ModelConfig] = None) -> Engine:
     for s in sessions[:3]:
         print(f"  req {s.uid}: {s.finish_reason}, "
               f"preempted {s.preemptions}x, {s.result()[:8]}...")
-    report = eng.traffic_report()
+    if args.role is not None:
+        print(transfer_summary(eng.transfer))
+    serving = eng.decode if args.role == "both" else eng
+    report = serving.traffic_report()
     if report.get("kv_stash"):
         fetch = report.get("kv_fetch", {"wire_bytes": 0.0, "calls": 0})
         print(f"spill[{report['tier']}]: "
@@ -243,8 +322,8 @@ def main(argv=None, cfg: Optional[ModelConfig] = None) -> Engine:
         print("tenants:", {t: u for t, u in eng.quota_report().items()})
     print("kernel launches: " + ", ".join(
         f"{k}={n - launches[k]}" for k, n in kernel_launches().items()))
-    if hasattr(eng.scheduler, "miss_report"):
-        print("deadlines:", eng.scheduler.miss_report())
+    if hasattr(serving.scheduler, "miss_report"):
+        print("deadlines:", serving.scheduler.miss_report())
     return eng
 
 

@@ -47,7 +47,7 @@ from repro_torch.core.tiers import TransferHints
 from repro_torch.models import transformer as tfm
 from repro_torch.serve.kv_cache import (DEFAULT_HBM_FRAC, DEFAULT_MAX_BATCH,
                                         DEFAULT_MAX_LEN, derive_cache_shape)
-from repro_torch.serve.paging import PageTable, SharedPayload
+from repro_torch.serve.paging import PageError, PageTable, SharedPayload
 from repro_torch.serve.session import Session, SessionState
 
 log = logging.getLogger(__name__)
@@ -220,6 +220,15 @@ class KVCacheManager:
     @property
     def can_preempt(self) -> bool:
         return self.spill_runtime is not None
+
+    # ------------------------------------------------------------------
+    # disaggregated handoff (prefill role: ship a finished prompt's KV)
+    def export_slot(self, sess: Session):
+        """A copy of one resident session's single-slot cache tree — the
+        prefill role's handoff unit, chopped into page-shaped trees by
+        :func:`~repro_torch.models.transformer.slot_pages`."""
+        assert sess.slot is not None, sess
+        return tfm.slot_cache(self.caches, sess.slot)
 
     # ------------------------------------------------------------------
     # spill / resume (cold slots through the secondary tier)
@@ -745,6 +754,37 @@ class PagedKVCacheManager(KVCacheManager):
                                  slot)
         self.table.note_resumed(uid)
         self.bind(slot, sess, sess.length)
+
+    # ------------------------------------------------------------------
+    # disaggregated adoption (decode role: take ownership of shipped pages)
+    def adopt(self, slot: int, sess: Session, handoff, queue) -> None:
+        """Install a transferred session into ``slot``.
+
+        The table *claims* fresh frames (never aliasing an existing owner:
+        the shipped pages become the only copy this role serves from),
+        the queue's payloads are fetched into them, the slot-shaped leaves
+        merge into row ``slot`` of ``slot_tree``, and the session binds at
+        its prefill length.  A :class:`~repro_torch.serve.paging.PageError`
+        (pool too hot) rolls the claim back before any page bytes are
+        fetched: the pages stay parked in the transfer tier.  A claimed
+        frame that held a compressed-resident page was inflated and its
+        side-pool frame returned when it was released, so the adopted page
+        lands raw."""
+        uid = sess.uid
+        self._sessions[uid] = sess
+        self._codec_by_uid[uid] = self.codec_for(sess.tenant)
+        try:
+            pids = self.table.claim(uid, handoff.num_pages, self._evict_cb)
+        except PageError:
+            self._sessions.pop(uid, None)
+            self._codec_by_uid.pop(uid, None)
+            raise
+        for pid, page in zip(pids, queue.fetch_pages(handoff)):
+            tfm.page_insert(self.pool, page, pid)
+        slot_one = queue.fetch_slot_leaves(handoff)
+        if slot_one is not None:
+            tfm.merge_slot_cache(self.slot_tree, slot_one, slot)
+        self.bind(slot, sess, handoff.length)
 
     def release(self, sess: Session) -> None:
         super().release(sess)

@@ -16,8 +16,17 @@ its worst-case page reservation against its tenant's quota before it may
 take a slot — less the pages it binds read-only from the prefix cache
 (``prefix_share``), which another session already paid for.  Such an
 admission prefills only its prompt's suffix, over the shared and forked
-pages.  This is the colocated engine (prefill and decode in one
-lifecycle); the reference's disaggregated roles come with a later slice.
+pages.
+
+**Roles** (``role=``, serve/disagg.py): ``"both"`` is the colocated
+engine, prefill and decode in one lifecycle.  ``"prefill"`` admits,
+prefills and samples the first token only; each freshly prefilled
+session's KV is chopped into page-shaped chunks and published to the
+``transfer`` queue (admission pauses while the queue is full).
+``"decode"`` takes no submissions: sessions arrive as page handoffs
+adopted from the queue (backpressure requeues them, their pages parked in
+the transfer tier) and then decode as colocated ones do.  Greedy streams
+are the same across ``both`` and prefill -> decode.
 
 Decode runs one batched step per unique cache length (the paged kernel
 takes one ``cache_index`` per call).  With ``decode_kernel`` the step's
@@ -44,7 +53,8 @@ from repro_torch.models.model import Model
 from repro_torch.serve.cache_manager import (KVCacheManager,
                                              PagedKVCacheManager,
                                              PrefixMatch)
-from repro_torch.serve.paging import PageError
+from repro_torch.serve.disagg import KVHandoff, TransferQueue
+from repro_torch.serve.paging import PageError, pages_for
 from repro_torch.serve.quota import QuotaManager, TenantQuota
 from repro_torch.serve.scheduler import Scheduler, build_scheduler
 from repro_torch.serve.session import (FINISH_CACHE_FULL, FINISH_EOS,
@@ -88,12 +98,26 @@ class Engine:
                  quota: Union[QuotaManager, TenantQuota,
                               Dict[str, TenantQuota], None] = None,
                  prefix_share: bool = False,
+                 role: str = "both",
+                 transfer: Optional[TransferQueue] = None,
                  **cache_kwargs):
+        if role not in ("both", "prefill", "decode"):
+            raise ValueError(f"role must be both/prefill/decode: {role!r}")
+        if role != "both":
+            if transfer is None:
+                raise ValueError(f"role={role!r} needs a TransferQueue "
+                                 "(serve/disagg.py) to ship KV through")
+            if not page_size:
+                raise ValueError(f"role={role!r} ships page-shaped KV: "
+                                 "pass page_size")
         self.model = model
         self.params = params
         self.device = model.device
         self.temperature = temperature
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.role = role
+        self.transfer = transfer
+        self._page_size = int(page_size) if page_size else None
         self.scheduler: Scheduler = (build_scheduler(scheduler)
                                      if isinstance(scheduler, str)
                                      else scheduler)
@@ -104,9 +128,10 @@ class Engine:
         else:
             self.quota = QuotaManager(dict(quota))
 
-        if decode_kernel and not page_size:
-            raise ValueError("decode_kernel needs paged KV: pass page_size")
-        if page_size:
+        if decode_kernel and not (page_size and role != "prefill"):
+            raise ValueError("decode_kernel needs paged KV: pass page_size "
+                             "(and a decode-capable role)")
+        if page_size and role != "prefill":
             self.cache: KVCacheManager = PagedKVCacheManager(
                 model, batch, max_len, spill=spill, page_size=page_size,
                 pages=pages,
@@ -114,11 +139,17 @@ class Engine:
                 decode_kernel=decode_kernel,
                 prefix_share=prefix_share, **cache_kwargs)
         else:
+            # the prefill role computes in plain contiguous slots; page_size
+            # only shapes the chunking of the published handoff
             if prefix_share:
                 log.warning("prefix sharing reuses whole pages and needs "
                             "paged KV (page_size): serving unshared")
             self.cache = KVCacheManager(model, batch, max_len, spill=spill,
                                         **cache_kwargs)
+        if role == "prefill" and self.cache.max_len % self._page_size:
+            raise ValueError(
+                f"page_size {self._page_size} must divide max_len "
+                f"{self.cache.max_len} (handoff pages tile the slot)")
         self.batch, self.max_len = self.cache.batch, self.cache.max_len
         self.kv_report = self.cache.report
         if not self.kv_report["fits"]:
@@ -265,6 +296,11 @@ class Engine:
     # ------------------------------------------------------------------
     def submit(self, req: Request, on_token=None) -> Session:
         """Queue a request; returns its :class:`Session` (token stream)."""
+        if self.role == "decode":
+            raise RuntimeError(
+                "a decode-role engine adopts sessions from the transfer "
+                "queue; submit prompts to the prefill engine (or the "
+                "DisaggPair facade)")
         sess = Session(request=req, seq=self._seq, on_token=on_token)
         self._seq += 1
         self.sessions.append(sess)
@@ -291,15 +327,28 @@ class Engine:
         if self.quota is not None:
             self.quota.release_uid(sess.uid)
 
+    def _session_pages(self, prompt_len: int, max_new: int) -> int:
+        """Worst-case page reservation.  The prefill role has no page pool
+        but charges the reservation its decode peer will serve under: the
+        charge on the shared ledger follows the session."""
+        if self.role == "prefill":
+            return pages_for(min(self.max_len, prompt_len + max_new),
+                             self._page_size)
+        return self.cache.session_pages(prompt_len, max_new)
+
     # ------------------------------------------------------------------
     @torch.no_grad()
     def step(self) -> int:
         """One engine step: advance the scheduler clock, sweep
         cancellations, preempt, admit, back the next decode row with pages,
         then one decode step for every resident session.  Returns the
-        number of resident sessions."""
+        number of resident sessions (prefill role: the number of handoffs
+        shipped this step)."""
         self.scheduler.on_step()
         self._sweep_cancelled()
+        if self.role == "prefill":
+            self._admit()
+            return self._publish_handoffs()
         self._preempt()
         self._admit()
         self._grow_pages()
@@ -343,12 +392,16 @@ class Engine:
     def _sweep_cancelled(self) -> None:
         """Honour out-of-band Session.cancel(): free the slot of a
         cancelled resident session, drop the parked cache / pages of one
-        cancelled while paused, and return the tenant-quota charge."""
+        cancelled while paused (or its handoff, cancelled in transit), and
+        return the tenant-quota charge."""
         for sess in self.cache.running():
             if sess.done:
                 self.cache.release(sess)
                 self.scheduler.on_retire(sess)
         self.cache.sweep_cancelled()
+        if self.transfer is not None:
+            for sess in self.transfer.sweep_cancelled():
+                self._release_quota(sess)
         if self.quota is not None:
             for uid in self.quota.charged_uids():
                 sess = self._by_uid.get(uid)
@@ -357,10 +410,15 @@ class Engine:
 
     def _preempt(self) -> None:
         """Pause running sessions when the scheduler ranks waiting work
-        above them (their KV goes cold: pages lazily, slots eagerly)."""
+        above them (their KV goes cold: pages lazily, slots eagerly).  On
+        the decode role the handoffs parked in the transfer queue are
+        waiting work too: without them a quantum policy would never turn
+        slots over toward incoming adoptions."""
         if not self.cache.can_preempt:
             return
         want = len(self.scheduler.waiting())
+        if self.role == "decode":
+            want += self.transfer.depth()
         freed = self.cache.num_free()
         while freed < want:
             victim = self.scheduler.preempt_victim(self.cache.running())
@@ -379,12 +437,22 @@ class Engine:
         tenants) admit past them — unless their demand could never fit the
         tenant's quota, which rejects with finish reason ``"quota"``.
         Pool-pressure failures (every page hot) stop admission for this
-        step."""
+        step.  The prefill role also waits for room in the transfer queue;
+        the decode role admits adoptions from the queue, then paused
+        resumes from its scheduler (a colocated fair policy's order too,
+        where a requeued session waits behind fresh arrivals)."""
+        if self.role == "decode":
+            self._admit_adoptions()
+            self._admit_resumes()
+            return
         deferred: List[Session] = []
         while True:
             slot = self.cache.free_slot()
             if slot is None:
                 break
+            if self.role == "prefill" and not self.transfer.has_room(
+                    pending=len(self.cache.running())):
+                break                   # decode-side backpressure
             sess = self.scheduler.next_ready()
             if sess is None:
                 break
@@ -402,7 +470,7 @@ class Engine:
                             sess.uid, len(prompt), self.max_len)
                 self._retire(sess, FINISH_REJECTED)
                 continue
-            pages_needed = self.cache.session_pages(
+            pages_needed = self._session_pages(
                 len(prompt), sess.request.max_new_tokens)
             # match before the quota gate: pages bound read-only from the
             # prefix cache are not charged (at least one page stays
@@ -445,6 +513,76 @@ class Engine:
         for sess in reversed(deferred):
             self.scheduler.requeue(sess)
 
+    # ------------------------------------------------------------------
+    # disaggregated roles: publish (prefill side) / adopt (decode side)
+    def _publish_handoffs(self) -> int:
+        """Ship every freshly prefilled resident session to the decode
+        side: chop its slot's KV into page-shaped chunks, stash them into
+        the transfer tier (metered as ``kv_publish``), free the slot, and
+        keep the quota charge on the shared ledger."""
+        shipped = 0
+        for sess in list(self.cache.running()):
+            if sess.done:
+                continue
+            one = self.cache.export_slot(sess)
+            pages, rest = tfm.slot_pages(
+                one, self._page_size, pages_for(sess.length, self._page_size))
+            self.cache.release(sess)
+            sess.state = SessionState.QUEUED    # in transit
+            self.transfer.publish(KVHandoff(session=sess, length=sess.length),
+                                  pages, rest if tree.leaves(rest) else None)
+            self.scheduler.on_handoff(sess)
+            shipped += 1
+        return shipped
+
+    def _admit_resumes(self) -> None:
+        """Decode role: re-admit paused sessions in scheduler order (fresh
+        work arrives through the transfer queue)."""
+        deferred: List[Session] = []
+        while True:
+            slot = self.cache.free_slot()
+            if slot is None:
+                break
+            sess = self.scheduler.next_ready()
+            if sess is None:
+                break
+            assert sess.state is SessionState.PAUSED, \
+                f"decode scheduler only holds paused sessions: {sess}"
+            try:
+                self.cache.resume(sess, slot)
+            except PageError:
+                deferred.append(sess)
+                break                   # pool too hot; retry next step
+        for sess in reversed(deferred):
+            self.scheduler.requeue(sess)
+
+    def _admit_adoptions(self) -> None:
+        """Decode role: adopt transferred sessions into free slots.
+        Adoption claims fresh frames first (evicting cold pages if the
+        spill tier allows) and only then fetches the shipped bytes, so a
+        pool too hot costs no transfer traffic: the handoff requeues at the
+        back of the queue, its pages parked, never re-prefilled."""
+        while True:
+            slot = self.cache.free_slot()
+            if slot is None:
+                break
+            handoff = self.transfer.next_ready()
+            if handoff is None:
+                break
+            sess = handoff.session
+            if sess.uid not in self._by_uid:
+                self.sessions.append(sess)
+                self._by_uid[sess.uid] = sess
+            if sess.done:               # cancelled in transit
+                self.transfer.discard(handoff)
+                self._release_quota(sess)
+                continue
+            try:
+                self.cache.adopt(slot, sess, handoff, self.transfer)
+            except PageError:
+                self.transfer.requeue(handoff)
+                break                   # pool too hot; retry next step
+
     def _grow_pages(self) -> None:
         """Back every resident session's next decode row with a page.
         Under pool overcommit the allocation may find every page hot; the
@@ -485,7 +623,20 @@ class Engine:
 
     def run(self, max_steps: int = 10_000) -> List[Request]:
         for _ in range(max_steps):
-            if self.step() == 0 and not self.scheduler.has_waiting():
+            busy = self.step()
+            idle = busy == 0 and not self.scheduler.has_waiting()
+            if idle and self.role == "decode" and self.transfer.depth():
+                continue                # handoffs still parked in transit
+            if idle:
+                break
+            if self.role == "prefill" and busy == 0 and \
+                    not self.transfer.has_room():
+                # a standalone prefill engine cannot drain the queue it
+                # filled: stop, leaving the prompts visibly waiting
+                log.warning("prefill blocked: transfer queue full "
+                            "(depth %d) with no consumer; %d prompts "
+                            "still waiting", self.transfer.depth(),
+                            len(self.scheduler.waiting()))
                 break
         return self.finished
 
@@ -501,5 +652,6 @@ class Engine:
 
     def describe(self) -> str:
         quota = f" {self.quota.describe()}" if self.quota else ""
+        role = "" if self.role == "both" else f" role={self.role}"
         return (f"engine[{self.cache.describe()} "
-                f"sched={self.scheduler.describe()}{quota}]")
+                f"sched={self.scheduler.describe()}{quota}{role}]")
