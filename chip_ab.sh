@@ -1,6 +1,8 @@
 #!/usr/bin/env bash
 # One phase of chip_smoke.py (or the codec's timings) in two checkouts,
 # in turns A, B, B, A, on one NVIDIA GPU:
+#   phase 4 -- phase 4's counted serving run (full-width smollm-135m at 10
+#     of its 30 layers, 16 requests; tokens/s and TTFT);
 #   phase 5 (the default) -- full-width smollm-135m, 20 steps of 8 x 1024
 #     tokens, every layer's input stashed through the fp8 codec to pinned
 #     host memory, then two profiled steps;
@@ -14,7 +16,7 @@
 #     checkout with the one pack family each stash also forced through
 #     every regime).
 #
-#     bash chip_ab.sh DIR_A DIR_B [5|7|codec]
+#     bash chip_ab.sh DIR_A DIR_B [4|5|7|codec]
 #
 # Each directory is a checkout (e.g. a parent commit unpacked with
 # `git archive` into build/); each builds its own kernels at first use.
@@ -22,6 +24,7 @@
 # times), prefixed A or B.
 set -eu
 case "${3:-5}" in
+  4) PHASE="c.check_serve_main_path()" ;;
   5) PHASE="out, _ = c.check_train_path('training', c.TRAIN_ARGS,
     c.TRAIN_LAYERS, c.TRAIN_STEPS, {'fp8_pack': c.TRAIN_LAYERS,
     'fp8_unpack': c.TRAIN_LAYERS, 'flash_attention_fwd': 2 * c.TRAIN_LAYERS})
@@ -32,7 +35,7 @@ c.profile_train_steps(out, c.TRAIN_STEPS)" ;;
     require_fall=False)
 c.profile_train_steps(out, c.SSM_TRAIN_STEPS)" ;;
   codec) PHASE="" ;;
-  *) echo "chip_ab.sh: phase ${3} is not 5, 7 or codec" >&2; exit 2 ;;
+  *) echo "chip_ab.sh: phase ${3} is not 4, 5, 7 or codec" >&2; exit 2 ;;
 esac
 TIMES="$(cd "$(dirname "$0")" && pwd)/tests/torch_codec_times.py"
 run() {   # dir, tag

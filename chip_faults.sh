@@ -3,6 +3,9 @@
 #
 #     bash chip_faults.sh          # from anywhere; needs what chip_smoke.py needs
 #     bash chip_faults.sh NAME...  # only the named faults
+#     CHECKS='check_x() ...' bash chip_faults.sh NAME...
+#                                  # the named faults against these checks
+#                                  # instead of each fault's own
 #
 # Each fault is one edit to a kernel source (or, for the engine, to its
 # Python), made in a throwaway copy of the checkout under build/faults/
@@ -46,7 +49,11 @@ DISAGG='check_disagg_logits()'
 QWEN='check_qwen2vl_serve_logits()'
 WHISPER_TRAIN='check_train_whisper_vs_plain()'
 WHISPER_SERVE='check_whisper_serve_logits()'
-SHOW='disagg logits|    pair, |main path logits|reciprocal probe|paged_decode_attention (float|bfloat)|ssd_scan rounding probe|flash_attention_fwd (float|bfloat)|training, |bit-exact|  ssd_scan (float|bfloat)|(mamba2|zamba2|mixtral|qwen2-vl|whisper) logits|    (scan kernel|paged decode|plain bf16|kernel path)|gemm_os (float|bfloat)|gemm path|of the slots outside|    limits: |    limits \(max|    sharing |    int8, |danube at |MoE blocks|FAILED'
+# phase 14 (full-width smollm trained, killed, preempted, fed corrupt
+# snapshots and resumed; every loss and the final state against the
+# uninterrupted run, the corrupt snapshots' CRC, the resumed stream)
+CKPT='check_ckpt_chaos()'
+SHOW='disagg logits|    pair, |main path logits|reciprocal probe|paged_decode_attention (float|bfloat)|ssd_scan rounding probe|flash_attention_fwd (float|bfloat)|training, |bit-exact|  ssd_scan (float|bfloat)|(mamba2|zamba2|mixtral|qwen2-vl|whisper) logits|    (scan kernel|paged decode|plain bf16|kernel path)|gemm_os (float|bfloat)|gemm path|of the slots outside|    limits: |    limits \(max|    sharing |    int8, |danube at |MoE blocks|  \(b\)|  \(c\)|  \(d\)|  \(e\)|FAILED'
 ONLY=" $* "
 
 fault() {   # name, file (from the checkout's root), sed expression, checks
@@ -63,7 +70,7 @@ fault() {   # name, file (from the checkout's root), sed expression, checks
     echo "fault $1: the edit matched nothing in $src"
     exit 1
   fi
-  for check in $4; do
+  for check in ${CHECKS:-$4}; do
     (cd "$dir" && python3 -c "import sys, torch; sys.path.insert(0, 'src'); \
 import chip_smoke as c; c.$check" 2>&1) |
       grep -E "$SHOW" | sed "s/^/fault $1, $check: /"
@@ -269,3 +276,18 @@ fault adopt_page_shifted src/repro_torch/serve/cache_manager.py \
 fault publish_last_page_dropped src/repro_torch/serve/engine.py \
   's/pages_for(sess.length, self._page_size))/pages_for(sess.length, self._page_size) - 1)/' \
   "$DISAGG"
+# phase 14: the snapshot's encode returns before the host tier's copies off
+# the card are done (the writer thread may read a pinned buffer early;
+# (e) queues the copies behind a sleep kernel to show it)
+fault ckpt_encode_no_wait src/repro_torch/train/checkpoint.py \
+  's/if any(leaf.is_cuda for _, leaf, _, _ in staged):/if False:/' \
+  "$CKPT"
+# a resume that does not rewind the stream (it restarts at batch 0; the
+# loop skips the batches before the restored step)
+fault resume_without_set_state src/repro_torch/train/loop.py \
+  's/if hasattr(data_iter, "set_state") and payload.get("data"):/if False:/' \
+  "$CKPT"
+# restore without the CRC check
+fault restore_crc_skipped src/repro_torch/train/checkpoint.py \
+  's/(zlib.crc32(blob) \& 0xFFFFFFFF) != sh\["crc32"\]/False/' \
+  "$CKPT"

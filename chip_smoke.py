@@ -55,8 +55,9 @@ Phases (each failure exits non-zero; nothing is caught and carried on):
               kernel decode, int8 spill codec through its kernels, an
               overcommitted pool with host spill, so pages are evicted,
               refetched and resumed compressed.  First the whole path runs
-              twice, the paged decode on its plain version and then on the
-              kernel, the second run emitting the first run's tokens: the
+              twice at 10 of the 30 layers, the paged decode
+              on its plain version and then on the kernel, the second run
+              emitting the first run's tokens: the
               logits of every decode step, those after compressed
               adoptions included, must agree.  Then the path runs once
               more, at 10 of the 30 layers, with the launch counts set to
@@ -83,11 +84,11 @@ Phases (each failure exits non-zero; nothing is caught and carried on):
               scan chunks, decode runs at mixed lengths.  The whole path
               runs twice, the SSD scan on its plain version and then on
               the kernel, the second run emitting the first run's tokens,
-              on 8 of the 16 requests, and every sampled step's logits
-              must agree; then once more on all 16 at 16 of the 48
-              layers, counted: every request finished, the scan launched
-              once per layer per admission, the spill's stash and fetch
-              bytes equal.
+              on 8 of the 16 requests at 16 of the 48 layers, and every
+              sampled step's logits must agree; then once more on all
+              16 at 16 layers, counted: every request finished, the
+              scan launched once per layer per admission, the spill's
+              stash and fetch bytes equal.
 7. train    — trains full-width mamba2-370m for 10 steps of 8 x 1024
    mamba2     tokens, every layer's input stashed through the fp8 codec to
               pinned host memory: finite losses, the tier's bytes, the
@@ -172,8 +173,8 @@ Phases (each failure exits non-zero; nothing is caught and carried on):
 12. enc-dec — (a) serves full-width qwen2-vl-2b (bf16, random weights
     and VLM     from a seed; 12 heads of 128 over 2, M-RoPE) as phase 11
               serves mixtral: four comparison runs at 8 of its 28
-              layers on 8 requests, then all 16 at full depth, counted,
-              with ``--prefix-share`` (the gate turns it off: 0 page
+              layers on 8 requests, then all 16 at 8 layers too,
+              counted, with ``--prefix-share`` (the gate turns it off: 0 page
               hits).  (b) Trains full-width whisper-medium (24 encoder
               and 24 decoder layers) for 5 steps of 8 x 448 tokens over
               8 x 1500 frames (host tier, fp8 stash; the encoder's states
@@ -188,9 +189,9 @@ Phases (each failure exits non-zero; nothing is caught and carried on):
               int8 spill, each preempted slot's cross-attention cache
               parked whole; the kernel path's logits are held to the
               paged-gather path's (the reference cannot run whisper's
-              in-place decode: ROADMAP C10), bf16 and float32; then the
-              counted run.  No engine path feeds frames or patches, in
-              the reference either.
+              in-place decode: ROADMAP C10), bf16 and float32, at 8 of
+              its layers; then the counted run at 8 too.  No engine
+              path feeds frames or patches, in the reference either.
 13. disagg  — serves full-width smollm-135m (bf16) disaggregated
               through ``repro_torch.launch.serve --role both``: a prefill
               engine of one monolithic slot prefills one prompt a step
@@ -210,18 +211,48 @@ Phases (each failure exits non-zero; nothing is caught and carried on):
               ``kv_publish`` bytes other than page bytes x shipped pages
               (368,640 B a page at 30 layers), a handoff lost or adopted
               twice, or a payload left in the transfer tier.
+14. ckpt    — checkpoints as a memory tier, faults and chaos on
+              full-width smollm-135m (bf16, phase 5's 8 x 1024 tokens,
+              host tier, fp8 stash, 10 steps), every run through
+              ``repro_torch.launch.train`` with ``--ckpt-tier host
+              --ckpt-every 2 --ckpt-async --ckpt-shards 2`` in a private
+              directory (its free space must hold four snapshots), under
+              ``torch.use_deterministic_algorithms`` (in a process of its
+              own: the cuBLAS setting that needs slows serving): (a) the
+              run uninterrupted; (b) the run under ``--chaos
+              kill@3:2,corrupt@4,preempt@7`` (the preemption a real
+              SIGTERM to the CLI's own handler): every event fired, it
+              ends at the preemption snapshot of step 8, and the corrupt
+              snapshot of step 4 fails its CRC; (c) a fresh model resumes
+              from (b)'s directory (from step 8; its stream draws no batch
+              before it), then, the newest snapshot corrupted by the
+              chaos harness, once more (the CRC rejects it, the run falls
+              back to the newest valid one).  Every loss of (b) and (c)
+              equals (a)'s, and (c)'s final states (a)'s, bit for bit;
+              ``ckpt_load`` is metered.  (d) An fp8 snapshot of (a)'s
+              final state: each leaf's codes and scale are the plain
+              twin's, each restored leaf the plain decode of the file,
+              bit for bit, and the metered wire bytes the manifest's and
+              the files'.  (e) A save whose copies off the card are
+              queued behind a sleep kernel, the state written in place
+              right after it: the snapshot holds the state as saved.
+              Prints the snapshot's raw and wire bytes, the
+              encode, write + commit and restore seconds, the step time
+              with and without a save in flight, and the launches.
 
 Each phase prints its wall time, and the script its whole.  The line
 before the last is a JSON object with one entry per kernel (its launches
-summed over the counted runs of phases 3 to 13, and per run); the last
+summed over the counted runs of phases 3 to 14, and per run); the last
 line is ``{"ok": true, "device": {...}}``.
 """
 import gc
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -248,9 +279,14 @@ MAIN_ARGS = ["--arch", "smollm", "--device", "cuda", "--seed", "0",
 # reading its side pool with K and V scales swapped reads 0.60 and 0.087.
 LOGIT_ATOL = 0.15
 LOGIT_MEAN_ATOL = 0.02
-# the counted run serves at 10 of the 30 layers (the script's budget; the
-# two comparison runs keep all 30)
-MAIN_COUNT_LAYERS = 10
+# the counted run serves at 10 of the 30 layers (the script's budget), and
+# so do the two comparison runs (the readings above are from 30; the
+# script read 1153.8 s on a slow host before this cut).  At 10 layers
+# (same card) the 622 calls read 0.045 max and 0.0082 worst-call mean; the
+# K / V-scale swap reads 0.709 and 0.114, frame 0's scales for every
+# frame 3.969 and 0.566 (``chip_faults.sh`` with ``CHECKS=
+# 'check_main_path_logits()'``): the limits still fail both
+MAIN_COUNT_LAYERS = MAIN_CMP_LAYERS = 10
 
 # training main path: full-width smollm-135m (30 layers), batch 8 x 1024
 # tokens, 20 steps, every layer input stashed to pinned host memory
@@ -294,9 +330,15 @@ SSD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -8}
 # monolithic slots of 512 rows, fair preemption every 16 tokens, cold
 # sessions' state to pinned host memory
 SSM_LAYERS = 48
-# the counted run serves at 16 of the 48 layers (the script's budget; the
-# comparison runs keep all 48)
-SSM_COUNT_LAYERS = 16
+# the counted run serves at 16 of the 48 layers (the script's budget), and
+# so do the comparison runs (the readings below are from 48; at 16, same
+# card: float32 3.9e-4 / 4.2e-5, bfloat16 0.60 / 0.051 against a plain
+# bf16 vs f32 distance of 1.61 / 0.181).  Planted at 16 layers
+# (``chip_faults.sh`` with ``CHECKS='check_ssm_serve_logits()'``): the
+# mask after the exp gives NaN logits, the state carried without its
+# chunk decay reads 3.52 / 0.52 in bf16: both fail.  B / C of group
+# h % G reads as clean (mamba2 has one group: h % 1 == h / H)
+SSM_COUNT_LAYERS = SSM_CMP_LAYERS = 16
 SSM_SERVE_ARGS = ["--arch", "mamba2-370m", "--device", "cuda", "--seed", "0",
                   "--batch", "6",
                   "--max-len", "512", "--requests", "16",
@@ -528,7 +570,9 @@ MIXTRAL_TRAIN_F32_TOL = {"loss": 5e-3, "leaf_norm": 5e-2}
 # text, on three equal M-RoPE axes.  Four comparison runs at 8 of the 28
 # layers on 8 requests, as phase 11's (the paged decode plain and on the
 # kernel, bf16 and float32; float32 held to 1/50 of the plain bf16 vs
-# f32 distance, bf16 to all of it); the counted run at full depth
+# f32 distance, bf16 to all of it); the counted run at 8 layers too (at
+# 28 it took 62 s of phase 12a's 106 on an H100 (700 W), so it
+# was cut to pay for the script's budget)
 QWEN_LAYERS, QWEN_PAGES, QWEN_CMP_LAYERS = 28, 96, 8
 QWEN_ARGS = ["--arch", "qwen2-vl-2b", "--device", "cuda", "--seed", "0",
              "--batch", "6", "--max-len", "512", "--page-size", "16",
@@ -569,7 +613,8 @@ WHISPER_TRAIN_F32_TOL = {"loss": 5e-3, "leaf_norm": 5e-2}
 # streams, every run after the first on the first's tokens: float32 to
 # 1/50 of the gather path's bf16 vs f32 distance, bf16 to all of it.
 # The four comparison runs take 8 of the 24 decoder layers (the script's
-# time budget); the counted run serves all 24
+# time budget), and so does the counted run (8 encoder layers
+# too; at 24 it took 31 s on an H100, 700 W)
 WHISPER_PAGES, WHISPER_SERVE_CMP_LAYERS = 48, 8
 WHISPER_ARGS = ["--arch", "whisper-medium", "--device", "cuda", "--seed",
                 "0", "--batch", "6", "--max-len", str(WHISPER_SEQ),
@@ -579,7 +624,9 @@ WHISPER_ARGS = ["--arch", "whisper-medium", "--device", "cuda", "--seed",
                 "16", "--spill", "host", "--page-codec", "int8",
                 "--decode-kernel"]
 WHISPER_GATHER_ARGS = WHISPER_ARGS[:-1]
-WHISPER_CROSS_BYTES = WHISPER_LAYERS * 2 * WHISPER_FRAMES * 16 * 64 * 2
+# one slot's cross-attention cache a layer: k and v, 1500 frames of 16
+# heads of 64 in bf16
+WHISPER_CROSS_LAYER_BYTES = 2 * WHISPER_FRAMES * 16 * 64 * 2
 WHISPER_LOGIT_F32_SHARE = 0.02
 
 # disaggregated serving (phase 13): phase 4's settings through a prefill /
@@ -608,7 +655,10 @@ WHISPER_LOGIT_F32_SHARE = 0.02
 # colocated engine did in both dtypes (8 of 8 streams, 0 apart); on the
 # gather path 0 of 8 streams in bf16 (0.0469 / 0.0076: kernel against
 # plain decode) and 8 of 8 in f32 (2.6e-6).  Adopted pages landing one
-# frame late read 1.21 / 0.22, a handoff one page short 1.50 / 0.28
+# frame late read 1.21 / 0.22, a handoff one page short 1.50 / 0.28.  At
+# 10 layers (same card) the distance read 0.0600 / 0.0083, the
+# kernel pair 8 of 8 and 0 apart, the gather pair 0 of 8 in bf16
+# (0.0391 / 0.0067) and 8 of 8 in f32 (2.9e-6)
 _KERNEL = MAIN_ARGS.index("--decode-kernel")
 _CODEC = MAIN_ARGS.index("--page-codec")
 DISAGG_GATHER_ARGS = MAIN_ARGS[:_KERNEL] + MAIN_ARGS[_KERNEL + 1:] + [
@@ -620,12 +670,25 @@ DISAGG_CMP_ARGS = [a for i, a in enumerate(DISAGG_GATHER_ARGS)
     "--requests", "8", "--transfer-tier", "host"]
 DISAGG_ARGS = DISAGG_GATHER_ARGS + ["--transfer-tier", "spill"]
 # the comparisons took 111 s at 30 layers on an H100 (700 W), so the
-# counted run serves at 10 of the 30 (as phase 4's)
-DISAGG_CMP_LAYERS, DISAGG_COUNT_LAYERS = 30, 10
+# counted run serves at 10 of the 30 (as phase 4's), and since phase 14
+# (paid for here) the comparisons do too; the readings above are from 30
+DISAGG_CMP_LAYERS, DISAGG_COUNT_LAYERS = 10, 10
 DISAGG_BF16_SHARE, DISAGG_F32_SHARE = 1.5, 0.02
 # one smollm page a layer: k and v, 16 rows of 3 kv heads of 64 (x 2 B in
 # bf16: 368,640 B a page at 30 layers)
 SMOLLM_PAGE_LAYER_ELEMS = 2 * 16 * 3 * 64
+
+
+# checkpoints and chaos (phase 14): phase 5's training run cut to 10 steps,
+# saving every 2 through the host checkpoint tier, two shards, async
+CKPT_STEPS = 10
+CKPT_ARGS = TRAIN_ARGS[:TRAIN_ARGS.index("--steps")] + [
+    "--steps", str(CKPT_STEPS)] + TRAIN_ARGS[TRAIN_ARGS.index("--lr"):] + [
+    "--ckpt-tier", "host", "--ckpt-every", "2", "--ckpt-async",
+    "--ckpt-shards", "2"]
+CKPT_CHAOS = "kill@3:2,corrupt@4,preempt@7"
+# (b)'s directory holds keep (3) snapshots and the one being written
+CKPT_SNAPSHOTS = 4
 
 
 def cut(arch: str, layers: int):
@@ -1778,35 +1841,38 @@ def check_zamba2_kernels(dev, others):
     check_stash(dev, others, "zamba2", 2560, seed=9)
 
 
-def check_stash(dev, others, model, cols, seed, rows=8 * 1024):
+def check_stash(dev, others, model, cols, seed, rows=8 * 1024,
+                dtype=torch.bfloat16):
     """The fp8 pack and the unpack of one stashed sub-layer input of
-    ``model``, ``rows`` x ``cols`` bf16 as one row block (the training
-    path's 8 x 1024 tokens by default), bit-exact against the plain
-    versions, and timed."""
+    ``model``, ``rows`` x ``cols`` of ``dtype`` as one row block (the
+    training path's 8 x 1024 tokens in bf16 by default; a checkpoint's
+    largest leaf otherwise), bit-exact against the plain versions, and
+    timed."""
     from repro_torch.kernels import offload_pack as kp
     from repro_torch.kernels import ref
     g = torch.Generator(device=dev).manual_seed(seed)
     stash = (torch.randn((rows, cols), generator=g, device=dev)
-             * 3).bfloat16()
+             * 3).to(dtype)
     n, R = stash.numel(), stash.shape[0]
+    size = stash.element_size()
     q, sc = kp.fp8_pack(stash, block_rows=R)
     qr, sr = ref.fp8_pack_ref(stash, R)
     if not (torch.equal(q.view(torch.uint8), qr.view(torch.uint8))
             and torch.equal(sc, sr) and torch.equal(
-                kp.fp8_unpack(q, sc, block_rows=R, dtype=torch.bfloat16),
-                ref.fp8_unpack_ref(q, sc, R, torch.bfloat16))):
+                kp.fp8_unpack(q, sc, block_rows=R, dtype=dtype),
+                ref.fp8_unpack_ref(q, sc, R, dtype))):
         fail(f"fp8 pack / unpack of a {model} stash ({rows} x {cols}) not "
              "bit-exact")
     print(f"  fp8_pack and unpack of a {model} stash ({rows} x {cols}, "
-          "bf16): bit-exact", flush=True)
+          f"{str(dtype)[6:]}): bit-exact", flush=True)
     others[f"fp8_pack@{model}_stash"] = codec_row(
         lambda: kp.fp8_pack(stash, block_rows=R),
-        lambda: ref.fp8_pack_ref(stash, R), n * 2 + n + 4, n,
+        lambda: ref.fp8_pack_ref(stash, R), n * size + n + 4, n,
         PACK_SITES["fp8_pack"])
     others[f"fp8_unpack@{model}_stash"] = codec_row(
-        lambda: kp.fp8_unpack(q, sc, block_rows=R),
-        lambda: ref.fp8_unpack_ref(q, sc, R, torch.bfloat16),
-        n + 4 + 2 * n, n, UNPACK_SITE)
+        lambda: kp.fp8_unpack(q, sc, block_rows=R, dtype=dtype),
+        lambda: ref.fp8_unpack_ref(q, sc, R, dtype),
+        n + 4 + size * n, n, UNPACK_SITE)
 
 
 # ---------------------------------------------------------------------------
@@ -1824,7 +1890,8 @@ def main_path_logits(impl: str, forced=None):
     calls, compressed = [], []
     ops.set_paged_impl(impl)
     try:
-        eng = serve.build_engine(args)
+        eng = serve.build_engine(args, cfg=cut("smollm-135m",
+                                               MAIN_CMP_LAYERS))
         cache, decode, sample = eng.cache, eng._decode, eng._sample
 
         def spy_decode(tok, length, mask):
@@ -1965,6 +2032,15 @@ def check_page_launches(label, report, launches):
              "one a page")
 
 
+def train_main(argv, cfg=None):
+    """``repro_torch.launch.train.main`` with a checkpoint directory of its
+    own, removed after the run (a run resumes from whatever its directory
+    holds)."""
+    from repro_torch.launch import train as train_cli
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as d:
+        return train_cli.main(argv + ["--ckpt-dir", d], cfg=cfg)
+
+
 def check_train_path(label, argv, layers, steps, per_step,
                      require_fall=True, cfg=None, traffic=None,
                      tokens=TRAIN_BATCH * TRAIN_SEQ):
@@ -1976,8 +2052,7 @@ def check_train_path(label, argv, layers, steps, per_step,
     (raw bytes, wire bytes, calls) each way; by default ``layers`` inputs
     of ``tokens`` rows of d_model in bf16 through the fp8 codec (half the
     bytes on the wire)."""
-    from repro_torch.launch import train as train_cli
-    out, launches = counted(lambda: train_cli.main(argv, cfg=cfg))
+    out, launches = counted(lambda: train_main(argv, cfg=cfg))
     print(f"  launches on the {label} path: {launches}", flush=True)
     hist = out["history"]
     losses = [h["loss"] for h in hist]
@@ -2227,8 +2302,7 @@ def check_train_zamba2_vs_plain() -> None:
 def check_blocksparse_path():
     """Three steps with the stash in pooled HBM through the blocksparse
     codec: finite losses, blocksparse_pack once per layer a step."""
-    from repro_torch.launch import train as train_cli
-    out, launches = counted(lambda: train_cli.main(BLOCKSPARSE_ARGS))
+    out, launches = counted(lambda: train_main(BLOCKSPARSE_ARGS))
     losses = [h["loss"] for h in out["history"]]
     print(f"  mcdla + blocksparse: losses {[round(x, 4) for x in losses]}, "
           f"launches {launches}", flush=True)
@@ -2452,7 +2526,8 @@ def check_ssm_serve_logits() -> None:
     """Phase 6: mamba2 serving, the scan kernel against its plain
     version."""
     check_serve_kernels_vs_plain("mamba2", SSM_CMP_ARGS, ("ssd",),
-                                 "scan kernel", SSM_LOGIT_F32_TOL)
+                                 "scan kernel", SSM_LOGIT_F32_TOL,
+                                 cfg=cut("mamba2-370m", SSM_CMP_LAYERS))
 
 
 def check_zamba2_serve_logits() -> None:
@@ -2902,11 +2977,13 @@ def check_qwen2vl_serve_logits() -> None:
 
 
 def check_qwen2vl_serve_main_path():
-    """Phase 12's counted qwen2-vl run at full depth (28 paged decodes a
-    decode call), with ``--prefix-share``: the gate turns it off (M-RoPE
-    positions), so no page is bound from the prefix index."""
+    """Phase 12's counted qwen2-vl run at ``QWEN_CMP_LAYERS`` (that many
+    paged decodes a decode call), with ``--prefix-share``: the gate turns
+    it off (M-RoPE positions), so no page is bound from the prefix
+    index."""
     eng, launches = check_counted_serve(
-        "qwen2-vl", QWEN_ARGS + ["--prefix-share"], QWEN_LAYERS, 16)
+        "qwen2-vl", QWEN_ARGS + ["--prefix-share"], QWEN_CMP_LAYERS, 16,
+        cfg=cut("qwen2-vl-2b", QWEN_CMP_LAYERS))
     prefix = eng.traffic_report()["prefix"]
     print(f"  qwen2-vl prefix sharing: enabled {prefix['enabled']}, "
           f"{prefix['hits']} page hits", flush=True)
@@ -2972,15 +3049,17 @@ def check_whisper_serve_logits() -> None:
 
 
 def check_whisper_serve_main_path():
-    """Phase 12's counted whisper run: 24 paged decodes a decode call;
-    every preempted slot parks its cross-attention cache whole."""
-    eng, launches = check_counted_serve("whisper", WHISPER_ARGS,
-                                        WHISPER_LAYERS, 8)
+    """Phase 12's counted whisper run at ``WHISPER_SERVE_CMP_LAYERS``
+    (that many paged decodes a decode call); every preempted slot parks
+    its cross-attention cache whole."""
+    layers = WHISPER_SERVE_CMP_LAYERS
+    eng, launches = check_counted_serve("whisper", WHISPER_ARGS, layers, 8,
+                                        cfg=cut("whisper-medium", layers))
     slots = eng.traffic_report()["slots"]
-    if slots["parks"] <= 0 or \
-            slots["park_bytes"] != slots["parks"] * WHISPER_CROSS_BYTES:
+    want = layers * WHISPER_CROSS_LAYER_BYTES
+    if slots["parks"] <= 0 or slots["park_bytes"] != slots["parks"] * want:
         fail(f"whisper parked {slots['park_bytes']} B in {slots['parks']} "
-             f"parks; want {WHISPER_CROSS_BYTES} B each, at least one")
+             f"parks; want {want} B each, at least one")
     return launches
 
 
@@ -3149,10 +3228,317 @@ def check_disagg_serve_main_path():
     return launches
 
 
+# ---------------------------------------------------------------------------
+def same_bits(x: torch.Tensor, y: torch.Tensor) -> bool:
+    """Equal dtype, shape and bits (NaNs and signed zeros included)."""
+    if x.dtype != y.dtype or x.shape != y.shape:
+        return False
+    view = {1: torch.uint8, 2: torch.int16, 4: torch.int32,
+            8: torch.int64}[x.element_size()]
+    return torch.equal(x.detach().contiguous().view(view),
+                       y.detach().contiguous().view(view).to(x.device))
+
+
+def ckpt_run(directory: str, chaos: str = ""):
+    """One phase 14 training run through the CLI, in ``directory``."""
+    from repro_torch.launch import train as train_cli
+    return train_cli.main(CKPT_ARGS + ["--ckpt-dir", directory] + (
+        ["--chaos", chaos] if chaos else []))
+
+
+def ckpt_fp8_snapshot(out, directory):
+    """Phase 14 (d): an fp8 snapshot of ``out``'s final state through the
+    host checkpoint tier (the fp8 pack and the unpack on the card): codes,
+    scales and restored leaves bit for bit against the plain twins, the
+    metered wire bytes against the manifest and the files.  Returns the
+    save's and the restore's launches and the manifest's bytes."""
+    import numpy as np
+    from repro_torch.configs.base import CheckpointPlan
+    from repro_torch.kernels import ref as kref
+    from repro_torch.train.checkpoint import (CheckpointManager, _flatten,
+                                              from_numpy, make_ckpt_runtime)
+    model, flat = out["model"], _flatten(out["state"])
+    rt = make_ckpt_runtime(CheckpointPlan(enabled=True, codec="fp8"),
+                           model.plan, model.memory, model.device)
+    mgr = CheckpointManager(directory, keep=1, runtime=rt, shards=2)
+    _, saved = counted(lambda: mgr.save(CKPT_STEPS, {"state": out["state"],
+                                                     "data": None}))
+    (_, payload), loaded = counted(lambda: mgr.restore(CKPT_STEPS))
+    path = os.path.join(directory, f"step_{CKPT_STEPS:08d}")
+    with open(os.path.join(path, "manifest.json")) as f:
+        man = json.load(f)
+    arrays = {}
+    for sh in man["shards"]:
+        with np.load(os.path.join(path, sh["file"])) as z:
+            arrays.update({k: z[k] for k in z.files})
+    coded = files = 0
+    for e in man["keys"]:
+        key, x = e["key"], flat[e["key"]].detach()
+        codes = from_numpy(arrays[key], e["payload_dtype"]).to(x.device)
+        files += arrays[key].nbytes
+        if "scale_dtype" not in e:      # integer leaves pass through
+            if not same_bits(payload["state"][key], x):
+                fail(f"fp8 snapshot: leaf {key} did not come back as it was")
+            continue
+        coded += 1
+        scale = torch.from_numpy(np.asarray(arrays[key + "::scale"])
+                                 .reshape(1)).to(x.device)
+        files += arrays[key + "::scale"].nbytes
+        x2 = x.reshape(-1, x.shape[-1])
+        q, s = kref.fp8_pack_ref(x2, block_rows=x2.shape[0])
+        if not (same_bits(codes.reshape(x2.shape), q)
+                and same_bits(scale, s)):
+            fail(f"fp8 snapshot: leaf {key} {tuple(x.shape)} {x.dtype}: the "
+                 "kernel's codes or scale differ from the plain twin's")
+        want = kref.fp8_unpack_ref(q, s, block_rows=x2.shape[0],
+                                   dtype=x.dtype).reshape(x.shape)
+        if not same_bits(payload["state"][key], want):
+            fail(f"fp8 snapshot: restored leaf {key} differs from the plain "
+                 "decode of its file")
+    wire = rt.traffic_report()["ckpt_save"]["wire_bytes"]
+    print(f"  (d) fp8 snapshot: {coded} leaves coded, every code, scale and "
+          f"restored leaf bit-exact against the plain twins; raw "
+          f"{man['bytes']['raw']:.0f} B, wire {man['bytes']['wire']:.0f} B "
+          f"(metered {wire:.0f}, files' arrays {files} B); save "
+          f"{mgr.stats['encode_s'][0] + mgr.stats['write_s'][0]:.2f} s, "
+          f"restore {mgr.stats['restore_s'][0]:.2f} s; launches "
+          f"{saved['fp8_pack']} packs, {loaded['fp8_unpack']} unpacks",
+          flush=True)
+    if not wire == man["bytes"]["wire"] == files:
+        fail(f"fp8 snapshot: ckpt_save metered {wire} B on the wire, the "
+             f"manifest says {man['bytes']['wire']}, the files hold {files}")
+    if saved["fp8_pack"] != coded or loaded["fp8_unpack"] != coded:
+        fail(f"fp8 snapshot: {saved['fp8_pack']} packs and "
+             f"{loaded['fp8_unpack']} unpacks for {coded} coded leaves; want "
+             "one each a leaf")
+    return saved, loaded, man["bytes"]
+
+
+# (e)'s sleep kernel ahead of the snapshot's copies off the card (2^30
+# cycles: 0.54 s at 1.98 GHz), so the copies are still queued when the
+# save's encode would return without waiting for them
+CKPT_RACE_SLEEP_CYCLES = 2 ** 30
+
+
+def ckpt_encode_race(out, directory):
+    """Phase 14 (e): a save through the host checkpoint tier (async, as
+    the runs' saves) whose copies off the card are queued behind a sleep
+    kernel, an in-place write to every float leaf queued right after it,
+    before any synchronisation.  The snapshot must hold the state as it
+    was at the save, bit for bit: an encode that returned before its
+    copies landed would hand the writer thread pinned buffers not yet
+    written (or still holding an older snapshot's bytes).  Every float
+    leaf is moved first, so no earlier snapshot in this process holds
+    these bytes."""
+    from repro_torch.configs.base import CheckpointPlan
+    from repro_torch.train.checkpoint import (CheckpointManager, _flatten,
+                                              make_ckpt_runtime)
+    model = out["model"]
+    flat = {k: x for k, x in _flatten(out["state"]).items() if x is not None}
+    moved = [x for x in flat.values() if x.is_floating_point()]
+    with torch.no_grad():
+        for x in moved:
+            x.add_(1)
+    want = {k: x.detach().clone() for k, x in flat.items()}
+    rt = make_ckpt_runtime(CheckpointPlan(enabled=True, tier="host"),
+                           model.plan, model.memory, model.device)
+    mgr = CheckpointManager(directory, keep=1, runtime=rt, async_saves=True)
+    torch.cuda._sleep(CKPT_RACE_SLEEP_CYCLES)
+    mgr.save(1, {"state": out["state"], "data": None})
+    with torch.no_grad():
+        for x in moved:
+            x.add_(1)
+    mgr.wait()
+    _, payload = mgr.restore(1)
+    bad = [k for k, x in want.items() if not same_bits(payload["state"][k], x)]
+    print(f"  (e) a save queued behind a {CKPT_RACE_SLEEP_CYCLES}-cycle "
+          f"sleep, {len(moved)} leaves written in place right after it: "
+          f"{len(want) - len(bad)} of {len(want)} restored leaves as saved",
+          flush=True)
+    if bad:
+        fail(f"(e) {len(bad)} leaves of the snapshot are not the state at "
+             f"the save ({bad[:3]} ...): the encode returned before its "
+             "copies off the card landed")
+
+
+def check_ckpt_chaos():
+    """Phase 14 (the module docstring says what it runs and holds).
+    Returns the launches of (a)-(c) and of (d), by kernel.
+
+    Deterministic mode needs ``CUBLAS_WORKSPACE_CONFIG``, which PyTorch
+    reads once, at the process's first cuBLAS call: this sets it, so it
+    must run before that call (``main`` gives it a process of its own:
+    set for the whole script, it slowed phase 4's counted serving run
+    from 102.7 / 108.9 to 74.2 / 71.8 tok/s, ``chip_ab.sh`` on an H100,
+    700 W)."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    from repro_torch.configs import ARCHS
+    from repro_torch.data import pipeline
+    from repro_torch.train.chaos import ChaosMonkey, ChaosSchedule
+    from repro_torch.train.checkpoint import (CheckpointError,
+                                              CheckpointManager, _flatten)
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        # bf16 parameters, float32 moments
+        snap = ARCHS["smollm-135m"].param_count() * (2 + 4 + 4)
+        free = shutil.disk_usage(root).free
+        print(f"  checkpoints under {root}: {free / 1e9:.1f} GB free, a "
+              f"snapshot ~{snap / 1e9:.2f} GB", flush=True)
+        if free < CKPT_SNAPSHOTS * snap:
+            fail(f"{root} has {free} B free: {CKPT_SNAPSHOTS} snapshots of "
+                 f"~{snap} B do not fit")
+        da, db, dd = (os.path.join(root, x) for x in "abd")
+        torch.use_deterministic_algorithms(True)
+        try:
+            a, la = counted(lambda: ckpt_run(da))
+            b, lb = counted(lambda: ckpt_run(db, CKPT_CHAOS))
+            free_device_memory()
+            # (b) ends at its preemption snapshot; the corrupted one (step
+            # 4) fails its CRC (checked now: (c)'s saves collect it)
+            probe = CheckpointManager(db)
+            if probe.all_steps() != [4, 6, 8]:
+                fail(f"(b) left snapshots {probe.all_steps()}; want 4, 6, 8")
+            try:
+                probe.restore(4)
+                fail("the corrupted snapshot of step 4 restored")
+            except CheckpointError as e:
+                if "CRC mismatch" not in str(e):
+                    fail(f"step 4 was rejected, but not by its CRC: {e}")
+                print(f"  (b) {e}", flush=True)
+            # (c) as a restarted process: a fresh model resumes from (b)'s
+            # directory; its stream must start at the restored step
+            drawn = []
+            batch_at = pipeline.SyntheticLM.batch_at
+
+            def counting(self, t):
+                drawn.append(t)
+                return batch_at(self, t)
+            pipeline.SyntheticLM.batch_at = counting
+            try:
+                c, lc = counted(lambda: ckpt_run(db))
+            finally:
+                pipeline.SyntheticLM.batch_at = batch_at
+            free_device_memory()
+            newest = CheckpointManager(db).all_steps()[-1]
+            ChaosMonkey(ChaosSchedule.parse(f"corrupt@{newest}")).after_save(
+                newest, os.path.join(db, f"step_{newest:08d}"))
+            c2, lc2 = counted(lambda: ckpt_run(db))
+            free_device_memory()
+            fp8_saved, fp8_loaded, fp8_bytes = ckpt_fp8_snapshot(a, dd)
+        finally:
+            torch.use_deterministic_algorithms(False)
+
+        fired = b["chaos"].fired
+        print(f"  (b) chaos events fired: {b['chaos'].summary()}", flush=True)
+        if not (len(fired) == 4 and fired[:2] == ["kill@3", "kill@3"]
+                and fired[2].startswith("corrupt@4:arrays.")
+                and fired[3] == "preempt@7"):
+            fail(f"chaos: fired {fired}; want kill@3 twice, corrupt@4 and "
+                 "preempt@7")
+        steps = {k: [h["step"] for h in r["history"]]
+                 for k, r in (("a", a), ("b", b), ("c", c), ("c2", c2))}
+        want = {"a": list(range(1, CKPT_STEPS + 1)), "b": list(range(1, 9)),
+                "c": [9, 10], "c2": [9, 10]}
+        if steps != want:
+            fail(f"phase 14 steps trained {steps}; want {want}")
+        if min(drawn) != 8:
+            fail(f"(c) drew batch {min(drawn)} first: the resumed stream "
+                 "replayed from before the restored step 8")
+        ref = {h["step"]: h["loss"] for h in a["history"]}
+        if not all(map(math.isfinite, ref.values())):
+            fail(f"(a) losses not finite: {ref}")
+        for label, run in (("(b)", b), ("(c)", c), ("(c) fallback", c2)):
+            for h in run["history"]:
+                if h["loss"] != ref[h["step"]]:
+                    fail(f"{label} step {h['step']} loss {h['loss']!r}; the "
+                         f"uninterrupted run's {ref[h['step']]!r}")
+        final = _flatten(a["state"])
+        for label, run in (("(c)", c), ("(c) fallback", c2)):
+            got = _flatten(run["state"])
+            for key, leaf in final.items():
+                if not same_bits(got[key], leaf):
+                    fail(f"{label} final state leaf {key} differs from (a)'s")
+        loads = [r["mgr"].runtime.traffic_report().get("ckpt_load", {})
+                 for r in (c, c2)]
+        if not all(x.get("wire_bytes", 0) > 0 for x in loads):
+            fail(f"(c) ckpt_load not metered: {loads}")
+        print(f"  (b), (c) and the fallback: {len(b['history'])} + "
+              f"{len(c['history'])} + {len(c2['history'])} losses equal "
+              f"(a)'s bit for bit ({[round(x, 4) for x in ref.values()]}); "
+              f"(c)'s final states equal (a)'s, {len(final)} leaves; (c) "
+              f"drew batches from {min(drawn)}; ckpt_load "
+              f"{loads[0]['wire_bytes']:.0f} B", flush=True)
+
+        with open(os.path.join(da, f"step_{CKPT_STEPS:08d}",
+                               "manifest.json")) as f:
+            raw_bytes = json.load(f)["bytes"]
+        stats = a["mgr"].stats
+        hist = a["history"][1:]
+        busy = [h["ms"] for h in hist if h["ckpt_in_flight"]]
+        idle = [h["ms"] for h in hist if not h["ckpt_in_flight"]]
+
+        def mean(xs):
+            return sum(xs) / len(xs) if xs else float("nan")
+        print(f"  snapshot bytes: none raw {raw_bytes['raw']:.0f} wire "
+              f"{raw_bytes['wire']:.0f}; fp8 raw {fp8_bytes['raw']:.0f} wire "
+              f"{fp8_bytes['wire']:.0f}", flush=True)
+        print(f"  (a) {len(stats['encode_s'])} saves: sync encode mean "
+              f"{mean(stats['encode_s']):.3f} s, async write + CRC + commit "
+              f"mean {mean(stats['write_s']):.3f} s "
+              f"({[round(x, 3) for x in stats['write_s']]}); step time "
+              f"mean {mean(busy):.1f} ms with a save in flight "
+              f"({len(busy)} steps), {mean(idle):.1f} ms without "
+              f"({len(idle)}; steps 2-{CKPT_STEPS})", flush=True)
+        print(f"  restores: (c) {c['mgr'].stats['restore_s']} s, the "
+              f"fallback {c2['mgr'].stats['restore_s']} s; saved "
+              f"{len(stats['encode_s'])} + {len(b['mgr'].stats['encode_s'])}"
+              f" + {len(c['mgr'].stats['encode_s'])} + "
+              f"{len(c2['mgr'].stats['encode_s'])} snapshots, rejected 2 "
+              f"(step 4 and step {newest} by their CRC), restored 2 (step 8)",
+              flush=True)
+        totals = {name: la[name] + lb[name] + lc[name] + lc2[name]
+                  for name in la}
+        runs = sum(len(r["history"]) for r in (a, b, c, c2))
+        print(f"  launches on the checkpoint path ({runs} steps): {totals}",
+              flush=True)
+        for name, per_step in (("fp8_pack", TRAIN_LAYERS),
+                               ("fp8_unpack", TRAIN_LAYERS),
+                               ("flash_attention_fwd", 2 * TRAIN_LAYERS)):
+            if totals[name] != per_step * runs:
+                fail(f"{name} launched {totals[name]} times in {runs} steps; "
+                     f"want {per_step} a step")
+        ckpt_encode_race(a, os.path.join(root, "e"))
+        fp8 = {name: fp8_saved[name] + fp8_loaded[name] for name in la}
+        return totals, fp8
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def check_ckpt_phase() -> tuple:
+    """Phase 14 in a process of its own (``check_ckpt_chaos`` says why);
+    its output goes to this one's.  Returns its launches, as
+    ``check_ckpt_chaos``."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as d:
+        out = os.path.join(d, "launches.json")
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                               "--ckpt-phase", out], timeout=900)
+        if proc.returncode != 0:
+            fail(f"phase 14's process exited with {proc.returncode}")
+        with open(out) as f:
+            return tuple(json.load(f))
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a GPU")
     sys.path.insert(0, os.path.join(REPO, "src"))
+    if sys.argv[1:2] == ["--ckpt-phase"]:     # check_ckpt_phase's child
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        launches = check_ckpt_chaos()
+        with open(sys.argv[2], "w") as f:
+            json.dump(launches, f)
+        return
     try:
         from repro_torch.kernels import build
     except ImportError as e:
@@ -3212,6 +3598,10 @@ def main() -> None:
                 rows=TRAIN_BATCH * WHISPER_FRAMES)
     check_stash(dev, others, "whisper_dec", 1024, seed=22,
                 rows=TRAIN_BATCH * WHISPER_SEQ)
+    # an fp8 snapshot's largest leaf (phase 14): smollm's embedding
+    # moment, 49152 x 576 float32, one row block
+    check_stash(dev, others, "smollm_ckpt", 576, seed=23, rows=49152,
+                dtype=torch.float32)
     check_gemm(dev, results, others)
     by_path = {"gemm": check_gemm_path()}
     for name, r in list(results.items()) + list(others.items()):
@@ -3221,7 +3611,8 @@ def main() -> None:
               f"library {lib} ms, bound {r['bound_ms']:.6f} ms "
               f"({r['bound_by']})", flush=True)
 
-    phase("phase 4: serving main path (full-width smollm-135m, bf16)")
+    phase(f"phase 4: serving main path (full-width smollm-135m, bf16; "
+          f"comparison and counted runs at {MAIN_CMP_LAYERS} of 30 layers)")
     check_main_path_logits()
     by_path["serve"] = check_serve_main_path()
 
@@ -3237,7 +3628,7 @@ def main() -> None:
     by_path["train_blocksparse"] = check_blocksparse_path()
 
     phase("phase 6: serving main path (full-width mamba2-370m, bf16, "
-          f"monolithic slots, host spill; the counted run at "
+          f"monolithic slots, host spill; comparison and counted runs at "
           f"{SSM_COUNT_LAYERS} of {SSM_LAYERS} layers)")
     check_ssm_serve_logits()
     by_path["serve_mamba2"] = check_ssm_serve_main_path()
@@ -3284,7 +3675,7 @@ def main() -> None:
     free_device_memory()
 
     phase(f"phase 12a: VLM serving (full-width qwen2-vl-2b, bf16, int8 "
-          f"spill; comparison runs at {QWEN_CMP_LAYERS} of "
+          f"spill; comparison and counted runs at {QWEN_CMP_LAYERS} of "
           f"{QWEN_LAYERS} layers)")
     check_qwen2vl_serve_logits()
     by_path["serve_qwen2vl"] = check_qwen2vl_serve_main_path()
@@ -3294,8 +3685,9 @@ def main() -> None:
           f"{WHISPER_FRAMES} frames, host tier, fp8 stash)")
     by_path["train_whisper"] = check_train_whisper()
     free_device_memory()
-    phase("phase 12c: encoder-decoder serving (full-width whisper-medium, "
-          "bf16, int8 spill, parked cross caches)")
+    phase(f"phase 12c: encoder-decoder serving (full-width whisper-medium, "
+          f"bf16, int8 spill, parked cross caches; comparison and counted "
+          f"runs at {WHISPER_SERVE_CMP_LAYERS} of {WHISPER_LAYERS} layers)")
     check_whisper_serve_logits()
     by_path["serve_whisper"] = check_whisper_serve_main_path()
     free_device_memory()
@@ -3305,6 +3697,11 @@ def main() -> None:
           f"{DISAGG_COUNT_LAYERS})")
     check_disagg_logits()
     by_path["serve_disagg"] = check_disagg_serve_main_path()
+    free_device_memory()
+    phase(f"phase 14: checkpoints as a memory tier, faults and chaos "
+          f"(full-width smollm-135m, bf16, batch {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}, {CKPT_STEPS} steps, async host checkpoint tier)")
+    by_path["ckpt"], by_path["ckpt_fp8"] = check_ckpt_phase()
     phase("done")
     print(f"  whole script: {time.perf_counter() - t_start:.1f} s wall",
           flush=True)

@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
+import tempfile
 from typing import Optional, Sequence, Tuple
 
 from repro_torch import hw
@@ -337,6 +339,8 @@ SHAPES: Tuple[ShapeConfig, ...] = (
 
 SHAPES_BY_NAME = {s.name: s for s in SHAPES}
 
+# the reference's /tmp/repro_ckpt, under $TMPDIR where that is set
+DEFAULT_CKPT_DIR = os.path.join(tempfile.gettempdir(), "repro_ckpt")
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
@@ -352,7 +356,7 @@ class TrainConfig:
     seed: int = 0
     checkpoint_every: int = 50
     keep_checkpoints: int = 3
-    checkpoint_dir: str = "/tmp/repro_ckpt"
+    checkpoint_dir: str = DEFAULT_CKPT_DIR
     log_every: int = 10
     grad_compress: str = "none"      # none | int8  (error-feedback all-reduce)
     remat: bool = True

@@ -27,8 +27,8 @@ import torch
 
 from repro_torch import hw, tree
 from repro_torch.configs.base import MemoryPlan, MeshPlan
-from repro_torch.core.tiers import (MemoryTier, SpillTier, TransferHints,
-                                    build_tier)
+from repro_torch.core.tiers import (MemoryTier, SpillPayload, SpillTier,
+                                    TransferHints, build_tier)
 
 # big float aux (e.g. encoder states feeding cross-attention) stash too
 AUX_STASH_NDIM = 3
@@ -122,6 +122,30 @@ class MemoryRuntime:
         x = self.tier.fetch(payload, hints)
         if self.offloads:
             self._meter(direction, x, hints)
+        return x
+
+    # ------------------------------------------------------------------
+    # snapshots (checkpoint-as-a-tier).  Unlike stash/fetch these meter the
+    # *actual* payload bytes: the manifest the CheckpointManager commits
+    # accounts the same bytes, so ``traffic_report()["ckpt_save"]`` is
+    # checkable against the files for any codec stack
+    def snapshot(self, x: torch.Tensor, hints: Optional[TransferHints] = None,
+                 direction: str = "ckpt_save"):
+        """Stash one snapshot leaf through the tier, metered ``ckpt_save``."""
+        payload = self.tier.stash(x, hints or TransferHints())
+        raw = float(x.numel()) * x.element_size()
+        self._traffic.setdefault(direction, TierTraffic()).add(
+            raw, payload_bytes(payload))
+        return payload
+
+    def restore_snapshot(self, payload,
+                         hints: Optional[TransferHints] = None,
+                         direction: str = "ckpt_load") -> torch.Tensor:
+        """Fetch one snapshot leaf back, metered ``ckpt_load``."""
+        wire = payload_bytes(payload)
+        x = self.tier.fetch(payload, hints or TransferHints())
+        raw = float(x.numel()) * x.element_size()
+        self._traffic.setdefault(direction, TierTraffic()).add(raw, wire)
         return x
 
     def discard(self, payload) -> None:
@@ -263,6 +287,18 @@ class _StashedLayer(torch.autograd.Function):
         return (None,) + tuple(
             next(it) if isinstance(t, torch.Tensor) and t.requires_grad
             else None for t in inputs)
+
+
+def payload_bytes(payload) -> float:
+    """Bytes of every tensor in a tier payload (a tuple of data and codec
+    scale, the data possibly inside a :class:`SpillPayload`)."""
+    if isinstance(payload, torch.Tensor):
+        return float(payload.numel()) * payload.element_size()
+    if isinstance(payload, SpillPayload):
+        return payload_bytes(payload.inner)
+    if isinstance(payload, (tuple, list)):
+        return sum(payload_bytes(p) for p in payload)
+    return 0.0
 
 
 def fmt_bytes(n: float) -> str:

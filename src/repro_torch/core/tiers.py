@@ -21,6 +21,8 @@ Tiers ported so far:
   contract is spent, then overflow to a cheaper store.
 * :class:`CompressedTier` — decorator: quantise-and-pack through a stash
   codec's kernels before the inner tier's stash.
+* :class:`CheckpointTier` — decorator: the durable snapshot leg
+  (:func:`build_ckpt_tier` stacks the snapshot codec on top).
 
 Policies map to tiers through :func:`build_tier` — the one place that
 branches on ``MemoryPlan.policy`` strings.
@@ -339,6 +341,85 @@ class SpillTier(MemoryTier):
 
 
 # ---------------------------------------------------------------------------
+class CheckpointTier(MemoryTier):
+    """Decorator: the durable snapshot leg of the memory hierarchy.
+
+    A checkpoint is the coldest tensor class of all (touched once per
+    cadence, read only after a failure), so it goes through the tier API
+    like any other stash.  The data path is the backing store's; the
+    decorator prices durability:
+
+    * ``bandwidth`` — a snapshot is only fault-tolerant once it leaves the
+      failure domain, so the drain is the DCN hop in series with the
+      backing store.
+    * ``capacity`` — ``keep`` live snapshots must fit at once: each
+      addresses 1/keep of the backing store.
+
+    A snapshot read back from disk is host memory whatever leg stashed it:
+    over a :class:`SpillTier` backing it comes back by the overflow (host)
+    leg.
+    """
+
+    kind = "ckpt"
+
+    def __init__(self, inner: MemoryTier, keep: int = 1):
+        super().__init__(inner.plan, inner.memory, inner.device)
+        self.inner = inner
+        self.keep = max(1, keep)
+
+    def stash(self, x: torch.Tensor, hints: TransferHints) -> Payload:
+        return self.inner.stash(x, hints)
+
+    def fetch(self, payload: Payload, hints: TransferHints) -> torch.Tensor:
+        if isinstance(self.inner, SpillTier) and \
+                not isinstance(payload[0], SpillPayload):
+            return self.inner.overflow.fetch(payload, hints)
+        return self.inner.fetch(payload, hints)
+
+    def bandwidth(self, plan: MeshPlan, chip: hw.Chip = hw.H100) -> float:
+        inner_bw = self.inner.bandwidth(plan, chip)
+        if inner_bw <= 0:
+            return hw.DCN_BW
+        return 1.0 / (1.0 / hw.DCN_BW + 1.0 / inner_bw)
+
+    def capacity(self, accountant: PoolAccountant) -> float:
+        return self.inner.capacity(accountant) / self.keep
+
+    @property
+    def offloads(self) -> bool:
+        # a checkpoint always leaves the device, even over a DeviceTier
+        # backing (the drain hop is the point)
+        return True
+
+    def payload_ratio(self) -> float:
+        return self.inner.payload_ratio()
+
+    def wire_ratio(self, x: torch.Tensor, hints: TransferHints) -> float:
+        return self.inner.wire_ratio(x, hints)
+
+    def describe(self) -> str:
+        return f"{self.kind}[{self.inner.describe()}]"
+
+
+def build_ckpt_tier(memory: MemoryPlan, plan: MeshPlan, device: torch.device,
+                    backing: str = "host", codec: str = "none",
+                    keep: int = 1) -> MemoryTier:
+    """The snapshot tier for a run: the requested backing store (through
+    the registry; ``none`` / ``pipeline`` / ``checkpoint`` resolve to
+    ``host``) behind the durability drain, the snapshot codec on top."""
+    if backing in ("none", "pipeline", "checkpoint"):
+        backing = "host"
+    if backing not in _TIER_REGISTRY:
+        raise KeyError(f"unknown checkpoint backing {backing!r}; "
+                       f"registered: {registered_policies()}")
+    tier: MemoryTier = CheckpointTier(
+        _TIER_REGISTRY[backing](memory, plan, device), keep=keep)
+    if codec != "none":
+        tier = CompressedTier(tier, codec)
+    return tier
+
+
+# ---------------------------------------------------------------------------
 # tier registry: MemoryPlan.policy -> tier
 TierFactory = Callable[[MemoryPlan, MeshPlan, torch.device], MemoryTier]
 _TIER_REGISTRY: Dict[str, TierFactory] = {}
@@ -377,3 +458,7 @@ register_tier("mcdla", lambda m, p, d: PooledHbmTier(p, m, d))
 # DRAM past it
 register_tier("spill", lambda m, p, d: SpillTier(PooledHbmTier(p, m, d),
                                                  HostTier(p, m, d)))
+# "checkpoint": the durable snapshot leg over host DRAM (build_ckpt_tier
+# builds it with another backing and the snapshot codec)
+register_tier("checkpoint",
+              lambda m, p, d: CheckpointTier(HostTier(p, m, d)))

@@ -25,15 +25,22 @@ class SyntheticLM:
     """Deterministic, stateless-by-step synthetic LM stream.
 
     Batch t is a pure function of (seed, t): resuming at step t after a
-    restart reproduces the identical stream with no replay buffer (the
-    checkpointable ``get_state``/``set_state`` come with checkpointing,
-    slice 4).
+    restart reproduces the identical stream with no replay buffer.
+    ``get_state``/``set_state`` carry the position through a checkpoint.
     """
 
     def __init__(self, cfg: ModelConfig, batch: int, seq: int, seed: int = 0):
         self.cfg, self.batch, self.seq = cfg, batch, seq
         self.seed = seed
         self.step = 0
+
+    # -- checkpointable state -------------------------------------------
+    def get_state(self) -> Dict[str, int]:
+        return {"step": self.step, "seed": self.seed}
+
+    def set_state(self, state: Dict[str, int]) -> None:
+        self.step = int(state["step"])
+        self.seed = int(state["seed"])
 
     def batch_at(self, t: int) -> Dict[str, np.ndarray]:
         cfg = self.cfg
@@ -82,6 +89,13 @@ class MemmapTokens:
         self.step = 0
         self.n_windows = max(1, (len(self.tokens) - 1) // seq)
 
+    def get_state(self) -> Dict[str, int]:
+        return {"step": self.step, "seed": self.seed}
+
+    def set_state(self, state: Dict[str, int]) -> None:
+        self.step = int(state["step"])
+        self.seed = int(state["seed"])
+
     def batch_at(self, t: int) -> Dict[str, np.ndarray]:
         rng = np.random.default_rng(np.random.SeedSequence([self.seed, t]))
         idx = rng.integers(0, self.n_windows, size=(self.batch,))
@@ -129,34 +143,65 @@ class Prefetcher:
 
     The worker thread converts each numpy batch to int64 tensors in pinned
     host memory (when the device is a card); iteration copies it to the
-    device with ``non_blocking=True`` on the current stream."""
+    device with ``non_blocking=True`` on the current stream.  The worker
+    starts with the first iteration, so a resume's ``set_state`` before it
+    draws no batch of the old position.
+
+    ``get_state`` is the source's state at the consumer's position (the
+    step after the last batch iteration handed out, not the worker's
+    lookahead); ``set_state`` stops the worker, drops its lookahead and
+    rewinds the source, and iteration goes on from there."""
 
     def __init__(self, source, device, depth: int = 2):
         self.source = source
         self.device = torch.device(device)
         self.pin = self.device.type == "cuda"
-        self.q: "queue.Queue" = queue.Queue(maxsize=depth)
+        self.depth = depth
+        self._next = (source.get_state()["step"]
+                      if hasattr(source, "get_state") else 0)
+        self._closed = False
+        self.thread = None
+
+    def _start(self) -> None:
+        self.q: "queue.Queue" = queue.Queue(maxsize=self.depth)
         self._stop = threading.Event()
-        self.thread = threading.Thread(target=self._work, daemon=True)
+        self.thread = threading.Thread(target=self._work,
+                                       args=(self.q, self._stop), daemon=True)
         self.thread.start()
 
-    def _work(self):
+    def _work(self, q: "queue.Queue", stop: threading.Event) -> None:
         for t, batch in self.source:
-            if self._stop.is_set():
+            if stop.is_set():
                 break
             host = host_tensors(batch, self.pin)
-            while not self._stop.is_set():
+            while not stop.is_set():
                 try:
-                    self.q.put((t, host), timeout=0.25)
+                    q.put((t, host), timeout=0.25)
                     break
                 except queue.Full:
                     continue
 
     def __iter__(self):
-        while not self._stop.is_set():
+        while not self._closed:
+            if self.thread is None:
+                self._start()
             t, host = self.q.get()
+            self._next = t + 1
             yield t, {k: v.to(self.device, non_blocking=self.pin)
                       for k, v in host.items()}
 
+    def get_state(self) -> Dict[str, int]:
+        return dict(self.source.get_state(), step=self._next)
+
+    def set_state(self, state: Dict[str, int]) -> None:
+        if self.thread is not None:
+            self._stop.set()
+            self.thread.join()
+            self.thread = None
+        self.source.set_state(state)
+        self._next = int(state["step"])
+
     def close(self):
-        self._stop.set()
+        self._closed = True
+        if self.thread is not None:
+            self._stop.set()

@@ -7,6 +7,7 @@ import torch
 
 from repro_torch import tree
 from repro_torch.configs.base import TrainConfig
+from repro_torch.models import transformer as tfm
 from repro_torch.models.model import Model
 from repro_torch.train.optimizer import init_opt_state
 
@@ -30,4 +31,14 @@ def init_state(model: Model, tc: TrainConfig,
             t.requires_grad_(True)
     return {"params": params,
             "opt": init_opt_state(params, model.memory.opt_state_bits),
-            "step": torch.zeros((), dtype=torch.int32, device=model.device)}
+            "step": torch.zeros((), dtype=torch.int32,
+                                device=tree.leaves(params)[0].device)}
+
+
+def state_template(model: Model, tc: TrainConfig) -> Pytree:
+    """The state's shapes, dtypes and gradient flags on the meta device:
+    what a restore rebuilds (``train.checkpoint.to_device``) without
+    allocating a second state."""
+    params = tfm.init_params(torch.Generator().manual_seed(tc.seed),
+                             model.cfg, model.dtype, "meta")
+    return init_state(model, tc, params=params)

@@ -586,13 +586,14 @@ def test_serve_cli_smoke(arch):
 
 
 @pytest.mark.parametrize("arch", [WHISPER, QWEN])
-def test_train_cli_smoke(arch):
+def test_train_cli_smoke(arch, tmp_path):
     """Host tier, fp8 stash: finite losses; whisper stashes its 2 encoder
     and 2 decoder layers (and each decoder layer's encoder states, raw),
     qwen2-vl its 2 layers."""
     proc = _cli("repro_torch.launch.train", "--arch", arch, "--smoke",
                 "--device", "cpu", "--steps", "2", "--seq", "24",
-                "--policy", "host", "--compress", "fp8", "--log-every", "1")
+                "--policy", "host", "--compress", "fp8", "--log-every", "1",
+                "--ckpt-dir", str(tmp_path))
     assert proc.returncode == 0, proc.stderr[-2000:]
     out = proc.stdout
     losses = [float(line.split("loss=")[1].split()[0])

@@ -584,7 +584,7 @@ def test_bf16_train_step_keeps_f32_leaves():
         assert m.dtype == torch.float32
 
 
-def test_train_cli_smoke():
+def test_train_cli_smoke(tmp_path):
     """``launch.train --arch zamba2-2.7b`` on the CPU with the host tier
     and the fp8 stash: finite losses, every sub-layer stashed (the
     reduced twin: one group of two Mamba2 blocks and the shared block),
@@ -593,7 +593,8 @@ def test_train_cli_smoke():
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.train", "--arch", ARCH,
          "--smoke", "--device", "cpu", "--steps", "3", "--policy", "host",
-         "--compress", "fp8", "--log-every", "1"],
+         "--compress", "fp8", "--log-every", "1", "--ckpt-dir",
+         str(tmp_path)],
         env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-2000:]
     out = proc.stdout

@@ -94,6 +94,16 @@ def test_training_slice_modules_are_covered(module):
 
 
 @pytest.mark.parametrize("module", [
+    "repro_torch.train.checkpoint", "repro_torch.train.fault",
+    "repro_torch.train.chaos", "repro_torch.train.elastic",
+    "repro_torch.core.policy"])
+def test_checkpoint_slice_modules_are_covered(module):
+    """The checkpoint and fault-handling slice's modules are among those
+    the import checks above walk."""
+    assert module in _modules()
+
+
+@pytest.mark.parametrize("module", [
     "repro_torch.models.ssm", "repro_torch.kernels.ssd_scan",
     "repro_torch.kernels.ops"])
 def test_ssm_slice_modules_are_covered(module):

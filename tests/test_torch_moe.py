@@ -342,7 +342,7 @@ def test_bf16_carry_over_keeps_router_f32(arch):
 
 
 @pytest.mark.parametrize("arch", ARCHS)
-def test_entry_points_on_the_reduced_twin(arch):
+def test_entry_points_on_the_reduced_twin(arch, tmp_path):
     """Both CLIs on the CPU: the paged in-place decode with int8 spill
     under fair preemption, and three wrapped training steps through the
     fp8 stash with a finite, positive aux loss."""
@@ -359,7 +359,8 @@ def test_entry_points_on_the_reduced_twin(arch):
     assert report["decode_io"]["compressed_adopts"] > 0
     out = train_cli.main(["--arch", arch, "--smoke", "--device", "cpu",
                           "--steps", "3", "--policy", "host", "--compress",
-                          "fp8", "--log-every", "1"])
+                          "fp8", "--log-every", "1", "--ckpt-dir",
+                          str(tmp_path)])
     hist = out["history"]
     assert len(hist) == 3
     assert all(np.isfinite(h["loss"]) and h["aux_loss"] > 0 for h in hist)

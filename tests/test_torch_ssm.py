@@ -536,10 +536,11 @@ def test_serve_cli_smoke():
     assert "spill[" in proc.stdout
 
 
-def test_train_cli_smoke():
+def test_train_cli_smoke(tmp_path):
     proc = _cli("repro_torch.launch.train", "--arch", ARCH, "--smoke",
                 "--device", "cpu", "--steps", "3", "--policy", "host",
-                "--compress", "fp8", "--log-every", "1")
+                "--compress", "fp8", "--log-every", "1",
+                "--ckpt-dir", str(tmp_path))
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert "step 3 loss=" in proc.stdout
     assert "2 of 2 layer groups stashed" in proc.stdout

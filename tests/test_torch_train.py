@@ -355,20 +355,21 @@ def _cli(*args):
                           timeout=300)
 
 
-def test_train_cli_smoke():
+def test_train_cli_smoke(tmp_path):
     proc = _cli("--arch", "smollm", "--smoke", "--device", "cpu", "--steps",
                 "5", "--policy", "host", "--compress", "fp8",
-                "--log-every", "1")
+                "--log-every", "1", "--ckpt-dir", str(tmp_path))
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert "step 5 loss=" in proc.stdout
     assert "memory traffic: tier=host+fp8" in proc.stdout
     assert "2 of 2 layer groups stashed" in proc.stdout
 
 
-def test_train_cli_without_cuda_raises():
+def test_train_cli_without_cuda_raises(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
-    proc = _cli("--arch", "smollm", "--smoke", "--steps", "1")
+    proc = _cli("--arch", "smollm", "--smoke", "--steps", "1",
+                "--ckpt-dir", str(tmp_path))
     assert proc.returncode != 0
     assert "CUDA is not available" in proc.stderr
 

@@ -28,6 +28,7 @@ call from Python.
 import ctypes
 import os
 import sys
+import tempfile
 
 import torch
 
@@ -115,10 +116,12 @@ def captured_stash(arch):
 
     tiers.encode_tensor = spy
     try:
-        train_cli.main(["--arch", arch, "--device", "cuda", "--seed", "0",
-                        "--batch", "8", "--seq", "1024", "--steps", "1",
-                        "--lr", "3e-4", "--policy", "host", "--compress",
-                        "fp8", "--log-every", "1"])
+        with tempfile.TemporaryDirectory(prefix="codec_times_ckpt_") as d:
+            train_cli.main(["--arch", arch, "--device", "cuda", "--seed",
+                            "0", "--batch", "8", "--seq", "1024", "--steps",
+                            "1", "--lr", "3e-4", "--policy", "host",
+                            "--compress", "fp8", "--log-every", "1",
+                            "--ckpt-dir", d])
     finally:
         tiers.encode_tensor = encode
     torch.cuda.synchronize()
