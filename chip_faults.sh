@@ -47,13 +47,18 @@ MIXTRAL='check_mixtral_serve_logits()'
 # pair, gather path and kernel, against the colocated engine)
 DISAGG='check_disagg_logits()'
 QWEN='check_qwen2vl_serve_logits()'
+# phase 15's comparisons: (a) wire pairs over four channels against the
+# loopback pair, bit for bit in bf16 and float32; (b) the int8 wire codec,
+# every page leaf landed as the plain round trip of what was sent
+WIRE="check_wire_transports('bfloat16') check_wire_transports('float32')"
+WIRE_CODEC='check_wire_codec()'
 WHISPER_TRAIN='check_train_whisper_vs_plain()'
 WHISPER_SERVE='check_whisper_serve_logits()'
 # phase 14 (full-width smollm trained, killed, preempted, fed corrupt
 # snapshots and resumed; every loss and the final state against the
 # uninterrupted run, the corrupt snapshots' CRC, the resumed stream)
 CKPT='check_ckpt_chaos()'
-SHOW='disagg logits|    pair, |main path logits|reciprocal probe|paged_decode_attention (float|bfloat)|ssd_scan rounding probe|flash_attention_fwd (float|bfloat)|training, |bit-exact|  ssd_scan (float|bfloat)|(mamba2|zamba2|mixtral|qwen2-vl|whisper) logits|    (scan kernel|paged decode|plain bf16|kernel path)|gemm_os (float|bfloat)|gemm path|of the slots outside|    limits: |    limits \(max|    sharing |    int8, |danube at |MoE blocks|  \(b\)|  \(c\)|  \(d\)|  \(e\)|FAILED'
+SHOW='wire \(|    (memory|tcp|tcp x4|shm|int8 wire|router)|disagg logits|    pair, |main path logits|reciprocal probe|paged_decode_attention (float|bfloat)|ssd_scan rounding probe|flash_attention_fwd (float|bfloat)|training, |bit-exact|  ssd_scan (float|bfloat)|(mamba2|zamba2|mixtral|qwen2-vl|whisper) logits|    (scan kernel|paged decode|plain bf16|kernel path)|gemm_os (float|bfloat)|gemm path|of the slots outside|    limits: |    limits \(max|    sharing |    int8, |danube at |MoE blocks|  \(b\)|  \(c\)|  \(d\)|  \(e\)|FAILED'
 ONLY=" $* "
 
 fault() {   # name, file (from the checkout's root), sed expression, checks
@@ -291,3 +296,18 @@ fault resume_without_set_state src/repro_torch/train/loop.py \
 fault restore_crc_skipped src/repro_torch/train/checkpoint.py \
   's/(zlib.crc32(blob) \& 0xFFFFFFFF) != sh\["crc32"\]/False/' \
   "$CKPT"
+# phase 15: a striped handoff's pages 0 and 1 reassembled in swapped
+# frames (attention over whole pages is invariant to their order, so only
+# the summation order moves: (a) holds the logits bit for bit)
+fault stripe_pages_swapped src/repro_torch/serve/transport.py \
+  's/msg\["pages"\] = \[got\[i\] for i in range(n)\]/msg["pages"] = [got[i ^ 1 if i < n - n % 2 else i] for i in range(n)]/' \
+  "$WIRE"
+# phase 15: a bfloat16 leaf's bytes read back as float16 on the decode side
+fault wire_bf16_as_fp16 src/repro_torch/serve/transport.py \
+  's/                dt = _torch_dtype(leaf.dtype)/                dt = torch.float16 if leaf.dtype == "bfloat16" else _torch_dtype(leaf.dtype)/' \
+  "$WIRE"
+# phase 15: the int8 wire codec decodes each page leaf with the next
+# leaf's scale (k with v's, v with k's)
+fault wire_scale_of_next_leaf src/repro_torch/serve/transport.py \
+  's/np.asarray(leaves\[j\].scale, np.float32)/np.asarray(leaves[(j + 1) % len(leaves)].scale, np.float32)/' \
+  "$WIRE_CODEC"

@@ -163,13 +163,13 @@ Phases (each failure exits non-zero; nothing is caught and carried on):
               decode once per layer per decode call, the codec once a
               page, equal stash and fetch bytes, pages evicted and
               resumed compressed, the prefill drops and each expert's
-              tokens printed.  Trains 2 layers through
+              tokens printed (11a).  Trains 2 layers through
               ``repro_torch.launch.train`` for 5 steps of 8 x 1024 tokens
               (host tier, fp8 stash): finite losses, a finite aux loss
               above 0, the tier's bytes, the launches a step; profiles two
               more steps; then 3 steps twice in float32, the flash forward
               plain and on the kernel, every loss and every step-1
-              gradient leaf (the router's included) compared.
+              gradient leaf (the router's included) compared (11b).
 12. enc-dec — (a) serves full-width qwen2-vl-2b (bf16, random weights
     and VLM     from a seed; 12 heads of 128 over 2, M-RoPE) as phase 11
               serves mixtral: four comparison runs at 8 of its 28
@@ -200,7 +200,8 @@ Phases (each failure exits non-zero; nothing is caught and carried on):
               decodes on the paged decode kernel (passed through
               ``build_engine``, as the reference's build_disagg passes
               it; the command line refuses it beside ``--role``).  Six
-              comparison runs of 8 requests, raw spill, every run on the
+              comparison runs of 8 requests at 6 of the 30 layers (since
+              phase 15), raw spill, every run on the
               first's tokens: the colocated engine and the pair over a
               host transfer tier on the gather path and on the kernel, in
               bfloat16 and float32; the streams each pair path shares
@@ -240,9 +241,45 @@ Phases (each failure exits non-zero; nothing is caught and carried on):
               encode, write + commit and restore seconds, the step time
               with and without a save in flight, and the launches.
 
-Each phase prints its wall time, and the script its whole.  The line
+15. wire    — serves full-width smollm-135m (bf16) over the wire
+    and        transport and through the cluster router (serve/transport.py,
+    router     serve/router.py), phase 13's prompts and settings, every
+              decode engine on the paged decode kernel.  (a) At 10 layers
+              on 8 requests, raw spill, each dtype in a process of its
+              own beside (b) and (c): a prefill / decode wire pair over
+              each channel (in-memory, one TCP socket, TCP striped over 4
+              connections, the shared-memory arena), in bfloat16 and
+              float32, streams and every sampled row's logits bit for bit
+              the loopback pair's; ``kv_wire`` equals the bytes the
+              channel carried, summed over stripes, and the shm wire
+              carries headers only.  (b) Over TCP with every tenant's
+              codec int8 (float32): the pages cross coded through the
+              int8 pack kernel (one row block a leaf) and the unpack, and
+              the run equals, bit for bit, the same run with the codec on
+              its plain twins.  (c) A router over two engines
+              (least_loaded): engine 0 a wire pair over TCP, engine 1 a
+              loopback pair; engine 0 drained after 4 router steps (bf16,
+              logits on the loopback's tokens within 1.5 x its bf16 vs
+              f32 distance over the rows whose histories agree), engine
+              1 lost mid-run in a second run
+              (float32, stream for stream the loopback's); no session
+              dropped.  (d) The counted run at 30 layers: ``python -m
+              repro_torch.launch.serve --router --engines 2 --listen``
+              in this process, its engine 0's decode worker a second
+              process (``--role decode --connect``, the paged decode
+              kernel through ``serve.main``'s keyword), 16 requests of
+              128 + 64 with int8 spill; tok/s, TTFT, placements, wire
+              bytes, the worker's adopted pages and both processes'
+              launches printed.
+
+Phases 1-3 run in this process, in order.  Phases 4-15 then run in
+processes of their own (``python3 chip_smoke.py --phase KEY OUT``), up
+to three at once, each started when a slot is free and the device
+memory its runs need fits beside those running (``run_phases``); each
+one's output is printed when it ends, with its wall time, which
+includes whatever ran beside it.  The script prints its whole.  The line
 before the last is a JSON object with one entry per kernel (its launches
-summed over the counted runs of phases 3 to 14, and per run); the last
+summed over the counted runs of phases 3 to 15, and per run); the last
 line is ``{"ok": true, "device": {...}}``.
 """
 import gc
@@ -250,6 +287,7 @@ import json
 import math
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -673,6 +711,12 @@ DISAGG_ARGS = DISAGG_GATHER_ARGS + ["--transfer-tier", "spill"]
 # counted run serves at 10 of the 30 (as phase 4's), and since phase 14
 # (paid for here) the comparisons do too; the readings above are from 30
 DISAGG_CMP_LAYERS, DISAGG_COUNT_LAYERS = 10, 10
+# since phase 15 (paid for here) the comparisons take 6 of the 30 layers:
+# there (same card) the distance read 0.0486 / 0.0086, the kernel pair 8
+# of 8 and 0 apart, the gather pair 3 of 8 in bf16 (0.0352 / 0.0061) and 8
+# of 8 in f32 (2.7e-6); adopted pages landing one frame late read 1.855 /
+# 0.327, a handoff one page short 1.895 / 0.332
+DISAGG_CMP_LAYERS = 6
 DISAGG_BF16_SHARE, DISAGG_F32_SHARE = 1.5, 0.02
 # one smollm page a layer: k and v, 16 rows of 3 kv heads of 64 (x 2 B in
 # bf16: 368,640 B a page at 30 layers)
@@ -689,6 +733,33 @@ CKPT_ARGS = TRAIN_ARGS[:TRAIN_ARGS.index("--steps")] + [
 CKPT_CHAOS = "kill@3:2,corrupt@4,preempt@7"
 # (b)'s directory holds keep (3) snapshots and the one being written
 CKPT_SNAPSHOTS = 4
+
+
+# wire transport and router (phase 15): phase 13's comparison settings
+# (8 requests, raw spill, a host transfer tier for the loopback pair) on
+# the paged decode kernel, at 10 of the 30 layers.  On an H100 (700 W):
+# every wire run bit for bit the loopback's in both dtypes; a striped
+# handoff's pages 0 and 1 reassembled swapped moved the bf16 streams and
+# 504 of 512 float32 rows (2.3e-6), a bf16 leaf read as float16 moved the
+# streams, the int8 codec on the next leaf's scale landed 0 of 128 page
+# leaves as sent.  (c): the loopback's bf16 vs f32 distance 0.0466 /
+# 0.0078 over the rows of shared history, the router runs 0 apart and 8
+# of 8 streams
+WIRE_LAYERS = 10
+WIRE_CMP_ARGS = DISAGG_CMP_ARGS
+WIRE_CHANNELS = {"memory": dict(transport="memory"),
+                 "tcp": dict(transport="tcp"),
+                 "tcp x4": dict(transport="tcp", streams=4),
+                 "shm": dict(transport="shm")}
+# (c): engine 0 drained after this many router steps; engine 1 lost after
+WIRE_DRAIN_AT, WIRE_FAIL_AT = 4, 40
+WIRE_BF16_SHARE = 1.5
+# (d): phase 4's settings through the router at full depth, engine 0's
+# decode worker in a second process
+WIRE_ROUTER_ARGS = [a for a in MAIN_ARGS if a != "--decode-kernel"] + [
+    "--router", "--engines", "2"]
+# seconds the decode worker may take, its start and model build included
+WIRE_WORKER_S = 600
 
 
 def cut(arch: str, layers: int):
@@ -3229,6 +3300,526 @@ def check_disagg_serve_main_path():
 
 
 # ---------------------------------------------------------------------------
+def wire_pair_kwargs(args) -> dict:
+    """Phase 15's pair settings from the command line ``args`` (a fresh
+    decode scheduler each call), every decode engine on the paged decode
+    kernel."""
+    from repro_torch.launch import serve
+    from repro_torch.serve.quota import quota_from_cli
+    return dict(batch=args.batch, max_len=args.max_len,
+                page_size=args.page_size, pages=args.pages,
+                scheduler=args.scheduler,
+                decode_scheduler=serve.decode_scheduler(args),
+                spill=args.spill,
+                quota=quota_from_cli(args.tenant_quota, args.page_codec),
+                temperature=args.temperature, decode_kernel=True)
+
+
+def wire_serve_run(target, pairs, args, forced=None, on_step=None):
+    """Drive ``target`` (one pair, or a router over ``pairs``) on the
+    requests ``args`` describes.  Returns every sampled row's logits and
+    token keyed by (request uid, token index), the submitted sessions and
+    the wall seconds.  With ``forced`` (another run's tokens, by key) the
+    sessions emit those.  A wire pair's decode side rebuilds each session
+    off the wire; the rebuilt session is keyed too."""
+    from collections import deque
+    from repro_torch.launch import serve
+    rows = deque()
+    logits_by, tokens_by = {}, {}
+
+    def keyed(sess):
+        def emit(tok, orig=sess.emit):
+            key = (sess.uid, len(sess.tokens))
+            logits_by[key] = rows.popleft()
+            tok = forced[key] if forced is not None else tok
+            tokens_by[key] = tok
+            orig(tok)
+        sess.emit = emit
+        return sess
+
+    for pair in pairs:
+        for e in (pair.prefill, pair.decode):
+            def spy_sample(logits, sample=e._sample):
+                rows.extend(logits.float())
+                return sample(logits)
+            e._sample = spy_sample
+        recv = getattr(pair, "receiver", None)
+        if recv is not None:
+            def restore(msg, orig=recv._restore_session):
+                return keyed(orig(msg))
+            recv._restore_session = restore
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sessions = [keyed(sess) for sess in serve.submit_requests(
+        target, args, {}, vocab=pairs[0].prefill.model.cfg.vocab_size)]
+    if on_step is None:
+        target.run()
+    else:
+        target.run(on_step=on_step)
+    torch.cuda.synchronize()
+    if rows:
+        fail(f"{len(rows)} sampled rows were never emitted")
+    return logits_by, tokens_by, sessions, time.perf_counter() - t0
+
+
+def same_run(got, want, label) -> None:
+    """Two runs' keyed logits and tokens equal bit for bit."""
+    if got[0].keys() != want[0].keys() or got[1] != want[1]:
+        fail(f"{label}: the streams differ from the loopback pair's")
+    bad = [k for k, w in want[0].items() if not same_bits(got[0][k], w)]
+    if bad:
+        worst = max((got[0][k] - want[0][k]).abs().max().item()
+                    for k in bad)
+        fail(f"{label}: {len(bad)} of {len(want[0])} rows' logits differ "
+             f"from the loopback pair's (max |d| {worst:.4g})")
+
+
+def check_wire_report(label, pair, n_requests, layers, itemsize,
+                      codec_bytes=None, header_only=False) -> dict:
+    """A drained wire pair: every request published, adopted and answered
+    once; ``kv_publish`` = ``kv_adopt`` = page bytes x shipped pages
+    (``codec_bytes``: the coded page's bytes instead); ``kv_wire`` on
+    each side equals the bytes its channel carried (summed over stripes);
+    ``header_only``: the frames carry far less than the pages and the
+    arena is empty.  Returns the sender's report."""
+    rep = pair.traffic_report()
+    out, inn = rep["wire_out"], rep["wire_in"]
+    pub, adopt = out.get("kv_publish", {}), inn.get("kv_adopt", {})
+    tq_out, tq_in = out["transfer"], inn["transfer"]
+    page = codec_bytes or SMOLLM_PAGE_LAYER_ELEMS * layers * itemsize
+    chan = pair.sender.channel
+    sent = chan.bytes_sent
+    stripes = getattr(chan, "stripes", [chan])
+    print(f"    {label}: {tq_out['published']} handoffs "
+          f"({tq_out['shipped_pages']} pages), kv_publish "
+          f"{pub.get('wire_bytes'):.0f} B of {pub.get('raw_bytes'):.0f} raw "
+          f"/ {pub.get('calls')} leaves, kv_wire out "
+          f"{out['kv_wire']['wire_bytes']:.0f} B ({len(stripes)} "
+          f"stream(s): {[s.bytes_sent for s in stripes]} B), in "
+          f"{inn['kv_wire']['wire_bytes']:.0f} B", flush=True)
+    if pub != adopt:
+        fail(f"{label}: kv_adopt {adopt} differs from kv_publish {pub}")
+    if pub.get("wire_bytes") != page * tq_out["shipped_pages"]:
+        fail(f"{label}: kv_publish moved {pub.get('wire_bytes')} B; want "
+             f"{page} B x {tq_out['shipped_pages']} shipped pages")
+    if out["kv_wire"]["wire_bytes"] != sent or sent != sum(
+            s.bytes_sent for s in stripes) or \
+            inn["kv_wire"]["wire_bytes"] != pair.receiver.channel.bytes_sent:
+        fail(f"{label}: kv_wire {out['kv_wire']} / {inn['kv_wire']} is not "
+             f"what the channels carried ({sent} / "
+             f"{pair.receiver.channel.bytes_sent} B)")
+    if not (tq_out["published"] == tq_in["published"] == n_requests
+            == tq_out["results"] == tq_out["delivered"]) \
+            or not (tq_in["adopted_pages"] == tq_in["shipped_pages"]
+                    == tq_out["shipped_pages"]) \
+            or tq_out["depth"] or tq_in["depth"]:
+        fail(f"{label}: a handoff was lost or adopted twice: {tq_out}, "
+             f"{tq_in}")
+    if header_only and (out["kv_wire"]["wire_bytes"] * 10 > pub["wire_bytes"]
+                        or chan._allocs or chan.arena.free_bytes()
+                        != chan.arena.size):
+        fail(f"{label}: the shm wire carried {out['kv_wire']['wire_bytes']}"
+             f" B for {pub['wire_bytes']} B of pages, or left arena blocks")
+    return out
+
+
+def check_wire_transports(dtype: str) -> tuple:
+    """Phase 15 (a) in ``dtype`` at ``WIRE_LAYERS``: the loopback pair and
+    a wire pair over each of ``WIRE_CHANNELS``, every decode on the paged
+    decode kernel; each wire run's streams and keyed logits equal the
+    loopback's bit for bit.  Returns the loopback run (its keyed logits
+    and tokens) for (c)."""
+    from repro_torch.launch import serve
+    from repro_torch.serve.disagg import build_disagg
+    from repro_torch.serve.transport import build_wire_pair
+    args = serve.parse_args(WIRE_CMP_ARGS)
+    itemsize = torch.finfo(getattr(torch, dtype)).bits // 8
+    model, params = serve.build_model_params(
+        args, dtype, cut("smollm-135m", WIRE_LAYERS))
+    pair = build_disagg(model, params, transfer=args.transfer_tier,
+                        seed=args.seed, **wire_pair_kwargs(args))
+    want = wire_serve_run(pair, [pair], args)
+    print(f"  wire (a) {dtype}: loopback pair {want[3]:.1f} s", flush=True)
+    for name, kw in WIRE_CHANNELS.items():
+        wire = build_wire_pair(model, params, seed=args.seed, **kw,
+                               **wire_pair_kwargs(args))
+        try:
+            got = wire_serve_run(wire, [wire], args)
+            check_wire_report(f"{name}, {dtype}", wire, 8, WIRE_LAYERS,
+                              itemsize, header_only=name == "shm")
+        finally:
+            wire.close()
+        same_run(got, want, f"wire (a) {name}, {dtype}")
+        print(f"    {name}, {dtype}: {len(got[2])} streams and "
+              f"{len(got[0])} rows' logits bit for bit the loopback's "
+              f"({got[3]:.1f} s)", flush=True)
+    return ({k: v.cpu() for k, v in want[0].items()}, want[1])
+
+
+def check_wire_phase(out: str) -> None:
+    """Phase 15 (c) and (a) at once: (a) runs in a process of its own for
+    each dtype (``python3 chip_smoke.py --wire-phase DTYPE OUT``; serving
+    at this depth is bound by the host, so the three processes share the
+    card and its cores), (b) and (c)'s router runs in this one; (c)'s
+    runs are held to (a)'s loopback runs once those are in.  Every
+    comparison is bit for bit or keyed on the same tokens, so running
+    them side by side changes no result; (d), the timed run, runs after
+    them alone."""
+    procs = {}
+    for dtype in ("bfloat16", "float32"):
+        path = os.path.join(out, f"{dtype}.pt")
+        log = open(os.path.join(out, f"{dtype}.log"), "w")
+        procs[dtype] = (subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--wire-phase",
+             dtype, path], stdout=log, stderr=subprocess.STDOUT), log, path)
+    routed = None
+    try:
+        check_wire_codec()
+        routed = wire_router_runs()
+    finally:
+        for proc, log, _ in procs.values():
+            try:
+                if routed is not None:       # else this process failed
+                    proc.wait(timeout=WIRE_WORKER_S)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait(timeout=60)
+                log.close()
+    loop = {}
+    for dtype, (proc, log, path) in procs.items():
+        with open(log.name) as f:
+            text = f.read()
+        print("".join(ln + "\n" for ln in text.splitlines()
+                      if not ln.startswith("INFO")), end="", flush=True)
+        if proc.returncode != 0:
+            fail(f"phase 15 (a), {dtype}: its process exited with "
+                 f"{proc.returncode}")
+        loop[dtype] = torch.load(path)
+    check_wire_router(loop, routed)
+
+
+def shared_history(a, b):
+    """The keyed logits of runs ``a`` and ``b`` (keyed logits and tokens)
+    at the (uid, i) whose first i tokens the two runs share: rows computed
+    on the same history, whatever each run sampled later."""
+    keys = [(uid, i) for uid, i in a[0] if (uid, i) in b[0] and all(
+        a[1][uid, j] == b[1][uid, j] for j in range(i))]
+    return ({k: a[0][k] for k in keys}, {k: b[0][k] for k in keys})
+
+
+def spy_wire_pages(wire):
+    """Copies of every page leaf ``wire``'s sender publishes, and of every
+    page its receiver lands on the card, by (uid, page index, leaf path):
+    two dicts filled as the run goes."""
+    from repro_torch import tree
+    sent, landed = {}, {}
+    publish, fetch = wire.sender.publish, wire.receiver.fetch_pages
+
+    def record(store, uid, pages):
+        for i, page in enumerate(pages):
+            leaves, paths = tree.flatten(page)
+            for x, path in zip(leaves, paths):
+                store[uid, i, path] = x.clone()
+
+    def spy_publish(handoff, pages, slot_one=None):
+        record(sent, handoff.uid, pages)
+        publish(handoff, pages, slot_one)
+
+    def spy_fetch(handoff):
+        pages = fetch(handoff)
+        record(landed, handoff.uid, pages)
+        return pages
+
+    wire.sender.publish, wire.receiver.fetch_pages = spy_publish, spy_fetch
+    return sent, landed
+
+
+def check_coded_pages(label, sent, landed) -> None:
+    """Every page leaf that crossed the int8 wire landed as the plain
+    twins' round trip of what was sent (codes of the leaf's flattened 2-D
+    view as one row block, then decoded in its dtype), bit for bit."""
+    from repro_torch.kernels import ref as kref
+    if sent.keys() != landed.keys() or not sent:
+        fail(f"{label}: {len(landed)} page leaves landed for {len(sent)} "
+             "sent")
+    bad = 0
+    for key, x in sent.items():
+        x2 = x.reshape(-1, x.shape[-1])
+        q, scale = kref.int8_pack_ref(x2, x2.shape[0])
+        want = kref.fp8_unpack_ref(q, scale, x2.shape[0], x.dtype)
+        bad += not same_bits(landed[key], want.reshape(x.shape))
+    print(f"    {label}: {len(sent) - bad} of {len(sent)} page leaves "
+          "landed as the plain round trip of what was sent", flush=True)
+    if bad:
+        fail(f"{label}: {bad} page leaves did not land as sent")
+
+
+def check_wire_codec() -> dict:
+    """Phase 15 (b): float32 over TCP with every tenant's codec int8 (its
+    pack kernel on each page leaf as one row block, the unpack on the
+    decode side), against the same run with the codec on its plain twins:
+    bit for bit.  Returns the kernel run's sender report."""
+    import dataclasses
+    from repro_torch.core import compress
+    from repro_torch.kernels import ref as kref
+    from repro_torch.launch import serve
+    from repro_torch.serve.transport import build_wire_pair
+    args = serve.parse_args(WIRE_CMP_ARGS + ["--page-codec", "int8"])
+    model, params = serve.build_model_params(
+        args, "float32", cut("smollm-135m", WIRE_LAYERS))
+    kernel = compress.get_codec("int8")
+    plain = dataclasses.replace(
+        kernel, pack=lambda x, *, block_rows: kref.int8_pack_ref(
+            x, block_rows),
+        unpack=lambda q, s, *, block_rows, dtype: kref.fp8_unpack_ref(
+            q, s, block_rows, dtype),
+        pack_leaves=kref.int8_pack_leaves_ref,
+        unpack_leaves=kref.unpack_leaves_ref)
+    # one page coded: a leaf of (layers, 16, 3, 64) in int8 and a scale
+    coded = 2 * (SMOLLM_PAGE_LAYER_ELEMS // 2 * WIRE_LAYERS + 4)
+    runs = {}
+    for name, codec in (("kernels", kernel), ("plain twins", plain)):
+        compress.register_codec(codec)
+        try:
+            wire = build_wire_pair(model, params, transport="tcp",
+                                   seed=args.seed, wire_codec=True,
+                                   **wire_pair_kwargs(args))
+            sent, landed = spy_wire_pages(wire)
+            try:
+                runs[name], launches = counted(
+                    lambda: wire_serve_run(wire, [wire], args))
+                report = check_wire_report(f"int8 wire, {name}", wire, 8,
+                                           WIRE_LAYERS, 4,
+                                           codec_bytes=coded)
+            finally:
+                wire.close()
+        finally:
+            compress.register_codec(kernel)
+        print(f"    int8 wire, {name}: {runs[name][3]:.1f} s, launches "
+              f"{launches}", flush=True)
+        check_coded_pages(f"int8 wire, {name}", sent, landed)
+        if name == "kernels" and (launches["int8_pack"] < 2 * report[
+                "transfer"]["shipped_pages"] or not launches["fp8_unpack"]):
+            fail(f"the int8 wire codec's kernels launched {launches}")
+    same_run(runs["kernels"], runs["plain twins"], "wire (b), int8 codec")
+    print(f"  wire (b): float32 over TCP through the int8 codec, kernels "
+          f"and plain twins bit for bit ({len(runs['kernels'][0])} rows)",
+          flush=True)
+    del model, params
+    free_device_memory()
+    return report
+
+
+def wire_router_runs() -> dict:
+    """Phase 15 (c)'s runs: a router over a TCP wire pair (engine 0) and a
+    loopback pair (engine 1), least_loaded.  bfloat16 with engine 0
+    drained after ``WIRE_DRAIN_AT`` steps, on the tokens of a loopback
+    pair's run (made here first); float32 with engine 1 lost after
+    ``WIRE_FAIL_AT`` steps, on its own tokens.  No session dropped, every
+    one 64 tokens.  Returns each run's keyed logits and tokens by dtype,
+    and the bfloat16 loopback's as "loopback"."""
+    from repro_torch.launch import serve
+    from repro_torch.serve.disagg import build_disagg
+    from repro_torch.serve.router import DETACHED, LOST, Router
+    from repro_torch.serve.transport import build_wire_pair
+    args = serve.parse_args(WIRE_CMP_ARGS)
+    cfg = cut("smollm-135m", WIRE_LAYERS)
+    routed = {}
+    for dtype, event in (("bfloat16", "drain"), ("float32", "fail")):
+        model, params = serve.build_model_params(args, dtype, cfg)
+        forced = None
+        if dtype == "bfloat16":
+            pair = build_disagg(model, params, transfer=args.transfer_tier,
+                                seed=args.seed, **wire_pair_kwargs(args))
+            loop = wire_serve_run(pair, [pair], args)
+            routed["loopback"] = ({k: v.cpu() for k, v in loop[0].items()},
+                                  loop[1])
+            forced = loop[1]
+            del pair, loop
+        wire = build_wire_pair(model, params, transport="tcp",
+                               seed=args.seed, **wire_pair_kwargs(args))
+        pairs = [wire, build_disagg(model, params,
+                                    transfer=args.transfer_tier,
+                                    seed=args.seed + 2,
+                                    **wire_pair_kwargs(args))]
+        router = Router(pairs, placement="least_loaded")
+        at, act = ((WIRE_DRAIN_AT, lambda r: r.drain(0)) if event == "drain"
+                   else (WIRE_FAIL_AT, lambda r: r.fail(1)))
+        fired = []
+
+        def hook(r, at=at, act=act):
+            if r.now == at and not fired:
+                fired.append(sum(len(e.pair.decode.cache.running())
+                                 for e in r.engines))
+                act(r)
+
+        try:
+            got = wire_serve_run(router, pairs, args, forced, on_step=hook)
+        finally:
+            wire.close()
+        sessions = list(router.sessions.values())
+        placed = {}
+        for _, idx in router.placement_log:
+            placed[idx] = placed.get(idx, 0) + 1
+        dropped = sum(not s.done for s in sessions)
+        print(f"    router, {dtype}, {event}: {len(sessions)} sessions, "
+              f"{dropped} dropped, {router.requeues} requeued, placements "
+              f"{placed}, {fired} resident at the {event}, states "
+              f"{[e.state for e in router.engines]}, {router.now} steps, "
+              f"{got[3]:.1f} s", flush=True)
+        if not fired or dropped or len(sessions) != 8 or any(
+                s.finish_reason != "length" or len(s.result()) != 64
+                for s in sessions):
+            fail(f"wire (c) {event}: a session was dropped or cut short")
+        if event == "drain" and (router.engines[0].state != DETACHED
+                                 or placed.get(0, 0) == 0):
+            fail("wire (c): engine 0 served nothing or never detached")
+        if event == "fail" and (router.engines[1].state != LOST
+                                or not router.requeues):
+            fail("wire (c): engine 1's loss requeued nothing")
+        routed[dtype] = ({k: v.cpu() for k, v in got[0].items()}, got[1])
+        del model, params, pairs, router, got
+        free_device_memory()
+    return routed
+
+
+def check_wire_router(loop, routed) -> None:
+    """Phase 15 (c)'s comparisons: the bfloat16 router run's logits on the
+    loopback's tokens, key by key, within ``WIRE_BF16_SHARE`` x the
+    loopback's own bf16 vs f32 distance (over the rows whose histories
+    agree in (a)'s two loopback runs); the float32 run stream for stream
+    the float32 loopback's.  (a)'s bfloat16 loopback, run in its own
+    process, equals (c)'s bit for bit."""
+    same_run(loop["bfloat16"], routed["loopback"], "wire (c) loopback")
+    bf16, f32 = shared_history(loop["bfloat16"], loop["float32"])
+    rounding = keyed_gap(bf16, f32, "wire (c) distance")
+    print(f"  wire (c): loopback bf16 vs f32 over the {len(bf16)} rows "
+          f"whose histories agree: max abs err {rounding[0]:.4g}, worst "
+          f"row's mean {rounding[1]:.3g}", flush=True)
+    gap = keyed_gap(routed["bfloat16"][0], loop["bfloat16"][0],
+                    "wire (c) router")
+    limit = tuple(WIRE_BF16_SHARE * d for d in rounding[:2])
+    print(f"    router vs loopback, bf16, on the loopback's tokens: max abs "
+          f"err {gap[0]:.4g}, worst row's mean {gap[1]:.3g}, argmax "
+          f"{gap[2]} (limit {limit[0]:.4g}, {limit[1]:.3g})", flush=True)
+    if gap[0] > limit[0] or gap[1] > limit[1]:
+        fail(f"wire (c) router logits beyond {WIRE_BF16_SHARE} x "
+             f"{rounding[:2]}")
+    same = sum(routed["float32"][1][k] == t
+               for k, t in loop["float32"][1].items())
+    streams = len({uid for uid, _ in loop["float32"][1]})
+    bad = {uid for uid, i in loop["float32"][1]
+           if routed["float32"][1].get((uid, i)) != loop["float32"][1][
+               uid, i]}
+    print(f"    router vs loopback, f32: {streams - len(bad)} of {streams} "
+          f"streams identical ({same} of {len(loop['float32'][1])} "
+          "tokens)", flush=True)
+    if bad:
+        fail("wire (c): a float32 stream through the router left the "
+             "loopback's")
+
+
+def wire_launches(text: str) -> dict:
+    """The decode worker's ``kernel launches: ...`` line, by the names of
+    ``kernel_counters``."""
+    names = {"unpack": "fp8_unpack"}
+    line = [ln for ln in text.splitlines()
+            if ln.startswith("kernel launches: ")]
+    if not line:
+        fail("the decode worker printed no launch line")
+    out = dict.fromkeys(kernel_counters(), 0)
+    for part in line[-1][len("kernel launches: "):].split(", "):
+        name, n = part.split("=")
+        out[names.get(name, name)] = int(n)
+    return out
+
+
+def check_wire_router_main_path() -> dict:
+    """Phase 15 (d), counted, at full depth: the router CLI in this process
+    (``--listen``), engine 0's decode worker in a second process (``--role
+    decode --connect``, its decode on the paged decode kernel through
+    ``serve.main``'s keyword), engine 1 a loopback pair; 16 requests with
+    int8 spill.  Every request finishes its 64 tokens, the worker adopts
+    every page engine 0 shipped, the wire bytes reconcile, and the paged
+    decode, the int8 pack and the unpack launch.  Returns the launches of
+    both processes."""
+    import socket
+    from repro_torch.launch import serve
+    with socket.socket() as probe:
+        probe.bind(("127.0.0.1", 0))
+        port = probe.getsockname()[1]
+    argv = WIRE_ROUTER_ARGS + ["--listen", str(port)]
+    worker_argv = [a for a in MAIN_ARGS if a != "--decode-kernel"] + [
+        "--role", "decode", "--connect", f"127.0.0.1:{port}"]
+    code = ("import sys; sys.path.insert(0, 'src'); "
+            "from repro_torch.launch import serve; "
+            f"serve.main({worker_argv!r}, decode_kernel=True)")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_wire_") as d:
+        log_path = os.path.join(d, "worker.log")
+        with open(log_path, "w") as log:
+            child = subprocess.Popen([sys.executable, "-c", code], cwd=REPO,
+                                     stdout=log, stderr=subprocess.STDOUT)
+            try:
+                router, launches = counted(
+                    lambda: serve.main(argv, decode_kernel=True))
+                rc = child.wait(timeout=WIRE_WORKER_S)
+            finally:
+                if child.poll() is None:
+                    child.kill()
+                    child.wait(timeout=60)
+        with open(log_path) as f:
+            text = f.read()
+    for ln in text.splitlines():
+        if ln.startswith(("decode worker", "pages[", "kernel launches")):
+            print(f"  worker: {ln}", flush=True)
+    if rc != 0:
+        fail(f"the decode worker exited with {rc}:\n{text[-3000:]}")
+    child_launches = wire_launches(text)
+    adopted = [ln for ln in text.splitlines()
+               if ln.startswith("decode worker done: adopted ")]
+    worker_pages = int(adopted[-1].split()[4]) if adopted else -1
+    sessions = list(router.sessions.values())
+    if len(sessions) != 16 or any(s.finish_reason != "length"
+                                  or len(s.result()) != 64
+                                  for s in sessions):
+        fail("wire router: not every request finished with 64 tokens: "
+             + str([(s.uid, s.finish_reason, len(s.result()))
+                    for s in sessions]))
+    vocab = router.engines[1].pair.model.cfg.vocab_size
+    if any(not 0 <= t < vocab for s in sessions for t in s.result()):
+        fail("wire router: a generated token lies outside the vocabulary")
+    sender = router.engines[0].pair.transfer
+    rep = sender.traffic_report()
+    tq = rep["transfer"]
+    layers = router.engines[1].pair.model.cfg.num_layers
+    page = SMOLLM_PAGE_LAYER_ELEMS * layers * 2
+    print(f"  wire router: engine 0 shipped {tq['shipped_pages']} pages in "
+          f"{tq['published']} handoffs ({rep['kv_publish']['wire_bytes']:.0f}"
+          f" B, kv_wire {rep['kv_wire']['wire_bytes']:.0f} B = "
+          f"{sender.channel.bytes_sent} B on the socket), {tq['results']} "
+          f"results; the worker adopted {worker_pages} pages", flush=True)
+    if tq["published"] == 0 or tq["results"] != tq["published"] \
+            or worker_pages != tq["shipped_pages"] \
+            or rep["kv_publish"]["wire_bytes"] != page * tq["shipped_pages"] \
+            or rep["kv_wire"]["wire_bytes"] != sender.channel.bytes_sent:
+        fail(f"wire router: engine 0's wire does not reconcile: {tq}, "
+             f"worker adopted {worker_pages}")
+    check_transfer("wire router engine 1", router.engines[1].pair,
+                   len(router.engines[1].pair.sessions), layers)
+    total = {k: launches[k] + child_launches[k] for k in launches}
+    print(f"  launches on the wire / router serving path: this process "
+          f"{launches}, decode worker {child_launches}", flush=True)
+    for name in ("paged_decode_attention", "int8_pack", "fp8_unpack"):
+        if not total[name]:
+            fail(f"kernel {name} was not launched on the wire / router path")
+    if not (launches["paged_decode_attention"]
+            and child_launches["paged_decode_attention"]):
+        fail("the paged decode did not run in both decode engines")
+    return total
+
+
+# ---------------------------------------------------------------------------
 def same_bits(x: torch.Tensor, y: torch.Tensor) -> bool:
     """Equal dtype, shape and bits (NaNs and signed zeros included)."""
     if x.dtype != y.dtype or x.shape != y.shape:
@@ -3367,10 +3958,10 @@ def check_ckpt_chaos():
 
     Deterministic mode needs ``CUBLAS_WORKSPACE_CONFIG``, which PyTorch
     reads once, at the process's first cuBLAS call: this sets it, so it
-    must run before that call (``main`` gives it a process of its own:
-    set for the whole script, it slowed phase 4's counted serving run
-    from 102.7 / 108.9 to 74.2 / 71.8 tok/s, ``chip_ab.sh`` on an H100,
-    700 W)."""
+    must run before that call (phase 14 has a process of its own, as
+    every phase from 4 on: set for the whole script, it slowed phase 4's
+    counted serving run from 102.7 / 108.9 to 74.2 / 71.8 tok/s,
+    ``chip_ab.sh`` on an H100, 700 W)."""
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     from repro_torch.configs import ARCHS
     from repro_torch.data import pipeline
@@ -3514,39 +4105,242 @@ def check_ckpt_chaos():
         shutil.rmtree(root, ignore_errors=True)
 
 
-def check_ckpt_phase() -> tuple:
-    """Phase 14 in a process of its own (``check_ckpt_chaos`` says why);
-    its output goes to this one's.  Returns its launches, as
-    ``check_ckpt_chaos``."""
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as d:
-        out = os.path.join(d, "launches.json")
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                               "--ckpt-phase", out], timeout=900)
-        if proc.returncode != 0:
-            fail(f"phase 14's process exited with {proc.returncode}")
-        with open(out) as f:
-            return tuple(json.load(f))
+# ---------------------------------------------------------------------------
+# Phases 4-15 run in processes of their own, up to PARALLEL at a time:
+# most serving is bound by the host, so phases share the card and its
+# cores (each comparison is bit for bit or on fixed tokens within one
+# process, so a neighbour changes no result; times printed by a phase
+# are taken beside whatever else runs then).  Run one after another they
+# took 938.7 s on an H100 (700 W) and passed the 1200 s limit on a
+# slower host.  Phase 3's timings run before any of them, alone.  A
+# phase starts only while the sum of the device memory of the phases
+# running stays within DEVICE_BUDGET_GIB (the card's 79.1 GiB less a CUDA
+# context of ~0.5 GiB a process): each phase's figure is its process's
+# peak reserved memory on that card, rounded up with room to spare
+# (phase 11b's float32 mixtral training read 72.3 GiB, so it runs beside
+# a 2 GiB phase at most).
+PARALLEL = 3
+DEVICE_BUDGET_GIB = 76
+PHASE_TIMEOUT_S = 900
+
+
+def phase_table() -> list:
+    """Phases 4-15 in the order they are started: (key, title, run,
+    device GiB).  ``run()`` returns the counted launches of the phase's
+    main paths, by path name and kernel.  Phase 9, the longest, goes
+    first and 11b, which needs nearly the whole card, last; the order
+    between keeps three running (a schedule of the phases' times when
+    run this way, on an H100)."""
+    def train_smollm():
+        out, launches = check_train_path(
+            "training", TRAIN_ARGS, TRAIN_LAYERS, TRAIN_STEPS,
+            {"fp8_pack": TRAIN_LAYERS, "fp8_unpack": TRAIN_LAYERS,
+             "flash_attention_fwd": 2 * TRAIN_LAYERS})
+        profile_train_steps(out, TRAIN_STEPS)
+        del out
+        check_train_flash_vs_plain()
+        return {"train": launches,
+                "train_blocksparse": check_blocksparse_path()}
+
+    def train_mamba2():
+        out, launches = check_train_path(
+            "mamba2 training", SSM_TRAIN_ARGS, SSM_LAYERS, SSM_TRAIN_STEPS,
+            {"fp8_pack": SSM_LAYERS, "fp8_unpack": SSM_LAYERS,
+             "ssd_scan": 2 * SSM_LAYERS}, require_fall=False)
+        profile_train_steps(out, SSM_TRAIN_STEPS)
+        del out
+        check_train_ssd_vs_plain()
+        return {"train_mamba2": launches}
+
+    def serve(key, logits, main_path):
+        def run():
+            logits()
+            return {key: main_path()}
+        return run
+
+    def wire():
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_wire_") as d:
+            check_wire_phase(d)
+        free_device_memory()
+        return {"serve_wire": check_wire_router_main_path()}
+
+    return [
+        ("9", f"phase 9: training main path (full-width zamba2-2.7b, bf16, "
+              f"batch {TRAIN_BATCH} x {TRAIN_SEQ}, host tier, fp8 stash)",
+         lambda: {"train_zamba2": check_train_zamba2()}, 50),
+        ("12c", f"phase 12c: encoder-decoder serving (full-width "
+                f"whisper-medium, bf16, int8 spill, parked cross caches; "
+                f"comparison and counted runs at {WHISPER_SERVE_CMP_LAYERS} "
+                f"of {WHISPER_LAYERS} layers)",
+         serve("serve_whisper", check_whisper_serve_logits,
+               check_whisper_serve_main_path), 4.5),
+        ("5", f"phase 5: training main path (full-width smollm-135m, bf16, "
+              f"batch {TRAIN_BATCH} x {TRAIN_SEQ}, host tier, fp8 stash)",
+         train_smollm, 8),
+        ("7", f"phase 7: training main path (full-width mamba2-370m, bf16, "
+              f"batch {TRAIN_BATCH} x {TRAIN_SEQ}, host tier, fp8 stash)",
+         train_mamba2, 13),
+        ("12b", f"phase 12b: encoder-decoder training (full-width "
+                f"whisper-medium, bf16, batch {TRAIN_BATCH} x "
+                f"{WHISPER_SEQ} over {WHISPER_FRAMES} frames, host tier, "
+                "fp8 stash)",
+         lambda: {"train_whisper": check_train_whisper()}, 19),
+        ("15", f"phase 15: wire transport and router (full-width "
+               f"smollm-135m, bf16; comparisons at {WIRE_LAYERS} of 30 "
+               f"layers, the counted two-process router at 30)", wire, 4),
+        ("14", f"phase 14: checkpoints as a memory tier, faults and chaos "
+               f"(full-width smollm-135m, bf16, batch {TRAIN_BATCH} x "
+               f"{TRAIN_SEQ}, {CKPT_STEPS} steps, async host checkpoint "
+               "tier)",
+         lambda: dict(zip(("ckpt", "ckpt_fp8"), check_ckpt_chaos())), 13),
+        ("6", "phase 6: serving main path (full-width mamba2-370m, bf16, "
+              "monolithic slots, host spill; comparison and counted runs at "
+              f"{SSM_COUNT_LAYERS} of {SSM_LAYERS} layers)",
+         serve("serve_mamba2", check_ssm_serve_logits,
+               check_ssm_serve_main_path), 2.5),
+        ("4", f"phase 4: serving main path (full-width smollm-135m, bf16; "
+              f"comparison and counted runs at {MAIN_CMP_LAYERS} of 30 "
+              "layers)",
+         serve("serve", check_main_path_logits, check_serve_main_path), 2),
+        ("12a", f"phase 12a: VLM serving (full-width qwen2-vl-2b, bf16, "
+                f"int8 spill; comparison and counted runs at "
+                f"{QWEN_CMP_LAYERS} of {QWEN_LAYERS} layers)",
+         serve("serve_qwen2vl", check_qwen2vl_serve_logits,
+               check_qwen2vl_serve_main_path), 6.5),
+        ("8", "phase 8: serving main path (full-width zamba2-2.7b, bf16, "
+              "paged shared-block KV beside slot-shaped SSM state, int8 "
+              f"spill; comparison and counted runs at {ZAMBA_CMP_LAYERS} of "
+              f"{ZAMBA_LAYERS} blocks)",
+         serve("serve_zamba2", check_zamba2_serve_logits,
+               check_zamba2_serve_main_path), 6),
+        ("10", "phase 10: prefix-sharing serving main path (full-width "
+               "h2o-danube-1.8b, bf16, a 328-token shared head, int8 spill; "
+               f"comparison and counted runs at {DANUBE_CMP_LAYERS} of 24 "
+               "layers)",
+         serve("serve_danube", check_danube_prefix_logits,
+               check_danube_serve_main_path), 5),
+        ("11a", f"phase 11a: MoE serving (full-width mixtral-8x7b, bf16, "
+                f"int8 spill; comparison and counted runs at "
+                f"{MIXTRAL_SERVE_LAYERS} of 32 layers)",
+         serve("serve_mixtral", check_mixtral_serve_logits,
+               check_mixtral_serve_main_path), 54),
+        ("13", f"phase 13: disaggregated serving (full-width smollm-135m, "
+               f"bf16, a prefill / decode pair over a transfer tier; "
+               f"comparisons at {DISAGG_CMP_LAYERS} of 30 layers, the "
+               f"counted run at {DISAGG_COUNT_LAYERS})",
+         serve("serve_disagg", check_disagg_logits,
+               check_disagg_serve_main_path), 2),
+        ("11b", f"phase 11b: MoE training (full-width mixtral-8x7b, bf16, "
+                f"{MIXTRAL_TRAIN_LAYERS} of 32 layers, batch {TRAIN_BATCH} "
+                f"x {TRAIN_SEQ}, host tier, fp8 stash)",
+         lambda: {"train_mixtral": check_train_mixtral()}, 74),
+    ]
+
+
+def run_phase(key: str, out: str) -> None:
+    """One phase in this process (``python3 chip_smoke.py --phase KEY
+    OUT``): its counted launches go to the JSON file ``out``."""
+    _, _, run, _ = next(p for p in phase_table() if p[0] == key)
+    t0 = time.perf_counter()
+    launches = run()
+    free_device_memory()
+    print(f"  wall {time.perf_counter() - t0:.1f} s in this process, peak "
+          f"device memory {torch.cuda.max_memory_reserved() / 2**30:.1f} "
+          "GiB reserved", flush=True)
+    with open(out, "w") as f:
+        json.dump(launches, f)
+
+
+def kill_group(proc) -> None:
+    """Kill a phase's process and every process it started (its
+    process group), and reap it."""
+    try:
+        os.killpg(proc.pid, signal.SIGKILL)
+    except ProcessLookupError:
+        pass
+    proc.wait(timeout=60)
+
+
+def run_phases(t_start: float, out_dir: str) -> dict:
+    """Phases 4-15, each in a process of its own, started in
+    ``phase_table``'s order whenever a slot is free and the device memory
+    allows (the first that fits goes next).  Prints each phase's output
+    when it ends; fails as soon as one fails.  Returns the launches by
+    path."""
+    pending, running, by_path = phase_table(), {}, {}
+    env = dict(os.environ)
+    env.setdefault("OMP_NUM_THREADS", str(max(1, (os.cpu_count() or 8)
+                                              // PARALLEL)))
+    try:
+        while pending or running:
+            for key, (title, proc, log, t0, path, _) in list(
+                    running.items()):
+                rc = proc.poll()
+                if rc is None and time.perf_counter() - t0 < PHASE_TIMEOUT_S:
+                    continue
+                kill_group(proc)         # and whatever it left running
+                del running[key]
+                log.close()
+                now = time.perf_counter()
+                print(f"== {title} (from {t0 - t_start:.0f} s to "
+                      f"{now - t_start:.0f} s)", flush=True)
+                with open(log.name) as f:
+                    print(f.read(), end="", flush=True)
+                print(f"  phase {key}: {now - t0:.1f} s wall", flush=True)
+                if rc is None:
+                    fail(f"phase {key} ran over {PHASE_TIMEOUT_S} s")
+                if rc != 0:
+                    fail(f"phase {key}'s process exited with {rc}")
+                with open(path) as f:
+                    by_path.update(json.load(f))
+            used = sum(entry[-1] for entry in running.values())
+            for entry in list(pending):
+                key, title, _, mem = entry
+                if len(running) >= PARALLEL:
+                    break
+                if used + mem > DEVICE_BUDGET_GIB:
+                    continue
+                pending.remove(entry)
+                used += mem
+                path = os.path.join(out_dir, f"{key}.json")
+                log = open(os.path.join(out_dir, f"{key}.log"), "w")
+                now = time.perf_counter()
+                print(f"  (at {now - t_start:.0f} s: phase {key} starts "
+                      f"beside {sorted(running) or 'nothing'})", flush=True)
+                running[key] = (title, subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), "--phase",
+                     key, path], stdout=log, env=env,
+                    process_group=0), log, now, path, mem)
+            time.sleep(0.2)
+    finally:
+        for _, proc, log, *_ in running.values():
+            kill_group(proc)
+            log.close()
+    return by_path
 
 
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a GPU")
     sys.path.insert(0, os.path.join(REPO, "src"))
-    if sys.argv[1:2] == ["--ckpt-phase"]:     # check_ckpt_phase's child
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        launches = check_ckpt_chaos()
-        with open(sys.argv[2], "w") as f:
-            json.dump(launches, f)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:2] == ["--wire-phase"]:     # check_wire_phase's child
+        torch.save(check_wire_transports(sys.argv[2]), sys.argv[3])
         return
+    if sys.argv[1:2] == ["--phase"]:          # run_phases' child
+        import ctypes                         # die with the script
+        ctypes.CDLL(None).prctl(1, signal.SIGKILL)    # PR_SET_PDEATHSIG
+        run_phase(sys.argv[2], sys.argv[3])
+        return
+    # a SIGTERM unwinds, so run_phases stops the phases' processes
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
     try:
         from repro_torch.kernels import build
     except ImportError as e:
         fail(f"cannot import the port from {REPO}/src: {e}")
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     marks = []
 
@@ -3610,98 +4404,12 @@ def main() -> None:
               f"{r['eager_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, "
               f"library {lib} ms, bound {r['bound_ms']:.6f} ms "
               f"({r['bound_by']})", flush=True)
-
-    phase(f"phase 4: serving main path (full-width smollm-135m, bf16; "
-          f"comparison and counted runs at {MAIN_CMP_LAYERS} of 30 layers)")
-    check_main_path_logits()
-    by_path["serve"] = check_serve_main_path()
-
-    phase(f"phase 5: training main path (full-width smollm-135m, bf16, "
-          f"batch {TRAIN_BATCH} x {TRAIN_SEQ}, host tier, fp8 stash)")
-    out, by_path["train"] = check_train_path(
-        "training", TRAIN_ARGS, TRAIN_LAYERS, TRAIN_STEPS,
-        {"fp8_pack": TRAIN_LAYERS, "fp8_unpack": TRAIN_LAYERS,
-         "flash_attention_fwd": 2 * TRAIN_LAYERS})
-    profile_train_steps(out, TRAIN_STEPS)
-    del out
-    check_train_flash_vs_plain()
-    by_path["train_blocksparse"] = check_blocksparse_path()
-
-    phase("phase 6: serving main path (full-width mamba2-370m, bf16, "
-          f"monolithic slots, host spill; comparison and counted runs at "
-          f"{SSM_COUNT_LAYERS} of {SSM_LAYERS} layers)")
-    check_ssm_serve_logits()
-    by_path["serve_mamba2"] = check_ssm_serve_main_path()
-
-    phase(f"phase 7: training main path (full-width mamba2-370m, bf16, "
-          f"batch {TRAIN_BATCH} x {TRAIN_SEQ}, host tier, fp8 stash)")
-    out, by_path["train_mamba2"] = check_train_path(
-        "mamba2 training", SSM_TRAIN_ARGS, SSM_LAYERS, SSM_TRAIN_STEPS,
-        {"fp8_pack": SSM_LAYERS, "fp8_unpack": SSM_LAYERS,
-         "ssd_scan": 2 * SSM_LAYERS}, require_fall=False)
-    profile_train_steps(out, SSM_TRAIN_STEPS)
-    del out
-    check_train_ssd_vs_plain()
-
-    phase("phase 8: serving main path (full-width zamba2-2.7b, bf16, "
-          "paged shared-block KV beside slot-shaped SSM state, int8 spill; "
-          f"comparison and counted runs at {ZAMBA_CMP_LAYERS} of "
-          f"{ZAMBA_LAYERS} blocks)")
-    check_zamba2_serve_logits()
-    by_path["serve_zamba2"] = check_zamba2_serve_main_path()
     free_device_memory()
 
-    phase(f"phase 9: training main path (full-width zamba2-2.7b, bf16, "
-          f"batch {TRAIN_BATCH} x {TRAIN_SEQ}, host tier, fp8 stash)")
-    by_path["train_zamba2"] = check_train_zamba2()
-    free_device_memory()
-
-    phase("phase 10: prefix-sharing serving main path (full-width "
-          "h2o-danube-1.8b, bf16, a 328-token shared head, int8 spill; "
-          f"comparison and counted runs at {DANUBE_CMP_LAYERS} of 24 "
-          "layers)")
-    check_danube_prefix_logits()
-    by_path["serve_danube"] = check_danube_serve_main_path()
-    free_device_memory()
-
-    phase(f"phase 11: MoE (full-width mixtral-8x7b, bf16): serving at "
-          f"{MIXTRAL_SERVE_LAYERS} of 32 layers, training at "
-          f"{MIXTRAL_TRAIN_LAYERS} (batch {TRAIN_BATCH} x {TRAIN_SEQ}, host "
-          "tier, fp8 stash)")
-    check_mixtral_serve_logits()
-    by_path["serve_mixtral"] = check_mixtral_serve_main_path()
-    free_device_memory()
-    by_path["train_mixtral"] = check_train_mixtral()
-    free_device_memory()
-
-    phase(f"phase 12a: VLM serving (full-width qwen2-vl-2b, bf16, int8 "
-          f"spill; comparison and counted runs at {QWEN_CMP_LAYERS} of "
-          f"{QWEN_LAYERS} layers)")
-    check_qwen2vl_serve_logits()
-    by_path["serve_qwen2vl"] = check_qwen2vl_serve_main_path()
-    free_device_memory()
-    phase(f"phase 12b: encoder-decoder training (full-width whisper-medium, "
-          f"bf16, batch {TRAIN_BATCH} x {WHISPER_SEQ} over "
-          f"{WHISPER_FRAMES} frames, host tier, fp8 stash)")
-    by_path["train_whisper"] = check_train_whisper()
-    free_device_memory()
-    phase(f"phase 12c: encoder-decoder serving (full-width whisper-medium, "
-          f"bf16, int8 spill, parked cross caches; comparison and counted "
-          f"runs at {WHISPER_SERVE_CMP_LAYERS} of {WHISPER_LAYERS} layers)")
-    check_whisper_serve_logits()
-    by_path["serve_whisper"] = check_whisper_serve_main_path()
-    free_device_memory()
-    phase(f"phase 13: disaggregated serving (full-width smollm-135m, bf16, "
-          f"a prefill / decode pair over a transfer tier; comparisons at "
-          f"{DISAGG_CMP_LAYERS} of 30 layers, the counted run at "
-          f"{DISAGG_COUNT_LAYERS})")
-    check_disagg_logits()
-    by_path["serve_disagg"] = check_disagg_serve_main_path()
-    free_device_memory()
-    phase(f"phase 14: checkpoints as a memory tier, faults and chaos "
-          f"(full-width smollm-135m, bf16, batch {TRAIN_BATCH} x "
-          f"{TRAIN_SEQ}, {CKPT_STEPS} steps, async host checkpoint tier)")
-    by_path["ckpt"], by_path["ckpt_fp8"] = check_ckpt_phase()
+    phase(f"phases 4-15: up to {PARALLEL} processes at once, within "
+          f"{DEVICE_BUDGET_GIB} GiB of device memory")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_phases_") as d:
+        by_path.update(run_phases(t_start, d))
     phase("done")
     print(f"  whole script: {time.perf_counter() - t_start:.1f} s wall",
           flush=True)

@@ -75,6 +75,17 @@ class MemoryRuntime:
         wire = raw * self.tier.wire_ratio(x, hints or TransferHints())
         self._traffic.setdefault(direction, TierTraffic()).add(raw, wire)
 
+    def meter_transfer(self, direction: str, raw_bytes: float,
+                       wire_bytes: float, calls: int = 1) -> None:
+        """Account a transfer that bypasses the tier stack (the wire
+        frames of serve/transport.py, metered as ``kv_wire`` with the exact
+        frame byte count) so ``traffic_report()`` stays the one place every
+        moved byte reconciles."""
+        t = self._traffic.setdefault(direction, TierTraffic())
+        t.calls += calls
+        t.raw_bytes += raw_bytes
+        t.wire_bytes += wire_bytes
+
     def reset_traffic(self) -> None:
         self._traffic = {}
 

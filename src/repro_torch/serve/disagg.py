@@ -265,8 +265,8 @@ class DisaggPair:
         self.decode = decode
         self.transfer = transfer
 
-    def submit(self, req, on_token=None) -> Session:
-        return self.prefill.submit(req, on_token=on_token)
+    def submit(self, req=None, on_token=None, session=None) -> Session:
+        return self.prefill.submit(req, on_token=on_token, session=session)
 
     def step(self) -> int:
         """One lockstep round; returns shipped handoffs + resident decode

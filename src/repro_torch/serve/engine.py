@@ -60,6 +60,7 @@ from repro_torch.serve.scheduler import Scheduler, build_scheduler
 from repro_torch.serve.session import (FINISH_CACHE_FULL, FINISH_EOS,
                                        FINISH_LENGTH, FINISH_QUOTA,
                                        FINISH_REJECTED, Session, SessionState)
+from repro_torch.serve.transport import TransportError
 
 log = logging.getLogger(__name__)
 
@@ -294,17 +295,29 @@ class Engine:
         return logits
 
     # ------------------------------------------------------------------
-    def submit(self, req: Request, on_token=None) -> Session:
-        """Queue a request; returns its :class:`Session` (token stream)."""
+    def submit(self, req: Optional[Request] = None, on_token=None,
+               session: Optional[Session] = None) -> Session:
+        """Queue a request; returns its :class:`Session` (token stream).
+
+        ``session=`` hands over an existing session instead of minting
+        one: the router does so, and the session keeps its cluster-wide
+        ``seq`` and stream identity across placement, drain and
+        engine-loss requeues."""
         if self.role == "decode":
             raise RuntimeError(
                 "a decode-role engine adopts sessions from the transfer "
                 "queue; submit prompts to the prefill engine (or the "
                 "DisaggPair facade)")
-        sess = Session(request=req, seq=self._seq, on_token=on_token)
-        self._seq += 1
-        self.sessions.append(sess)
-        self._by_uid[sess.uid] = sess
+        if session is None:
+            sess = Session(request=req, seq=self._seq, on_token=on_token)
+        else:
+            sess = session
+            if on_token is not None:
+                sess.on_token = on_token
+        self._seq = max(self._seq, sess.seq) + 1
+        if self._by_uid.get(sess.uid) is not sess:
+            self.sessions.append(sess)
+            self._by_uid[sess.uid] = sess
         self.scheduler.submit(sess)
         return sess
 
@@ -519,7 +532,8 @@ class Engine:
         """Ship every freshly prefilled resident session to the decode
         side: chop its slot's KV into page-shaped chunks, stash them into
         the transfer tier (metered as ``kv_publish``), free the slot, and
-        keep the quota charge on the shared ledger."""
+        keep the quota charge on the shared ledger.  A wire transfer
+        that fails mid-send requeues the session instead."""
         shipped = 0
         for sess in list(self.cache.running()):
             if sess.done:
@@ -529,8 +543,21 @@ class Engine:
                 one, self._page_size, pages_for(sess.length, self._page_size))
             self.cache.release(sess)
             sess.state = SessionState.QUEUED    # in transit
-            self.transfer.publish(KVHandoff(session=sess, length=sess.length),
-                                  pages, rest if tree.leaves(rest) else None)
+            try:
+                self.transfer.publish(
+                    KVHandoff(session=sess, length=sess.length), pages,
+                    rest if tree.leaves(rest) else None)
+            except TransportError as e:
+                # nothing reached the peer: release the reservation and
+                # requeue for a fresh prefill (re-charged at readmission;
+                # the replay streams no position twice)
+                log.warning("publish failed for uid=%d, requeueing: %s",
+                            sess.uid, e)
+                self._release_quota(sess)
+                if not sess.done:
+                    sess.rewind()
+                    self.scheduler.submit(sess)
+                continue
             self.scheduler.on_handoff(sess)
             shipped += 1
         return shipped
