@@ -272,16 +272,45 @@ Phases (each failure exits non-zero; nothing is caught and carried on):
               bytes, the worker's adopted pages and both processes'
               launches printed.
 
-Phases 1-3 run in this process, in order.  Phases 4-15 then run in
+16. federation — two routers (one engine pair each) federated over TCP
+              (serve/router.py ``FederatedRouter``), smollm-135m at full
+              width, phase 15's comparison settings: the origin has 2
+              slots for 8 requests, so its backlog is forwarded to the
+              peer (8 slots, 2 requests of its own), served there and
+              sent home.  (a) At 6 layers: in float32 through the
+              command line in two processes (``--router --fed-listen 0``
+              a child, ``--router --peer`` this process), every origin
+              stream equal to the same request's through one
+              unfederated router, forwarded = adopted > 0; in bfloat16
+              in this process over a TCP pair on the unfederated run's
+              tokens, the logits within 1.5 x its bf16 vs f32 distance.
+              (b) The peer drains with forwards in flight (all
+              rejected, all served at home), then a ``--peer`` child is
+              killed mid-flight (its forwards rewind and finish at the
+              origin); 0 dropped.  (c) The counted run at 30 layers, 16
+              requests at the origin (2 at the peer), int8 spill: tok/s,
+              TTFT, forwards, the FWD / FWD_RESULT bytes and both
+              processes' launches.
+
+17. planner — full-width smollm-135m training (phase 5's settings) with
+              ``--policy auto``: the KEEP / POOL / RECOMPUTE plan keeps
+              every layer group (no stash, one flash launch a layer a
+              step, no fp8 pack), its resident estimate printed beside
+              the card's peak allocation; then ``--ckpt-tier host
+              --ckpt-every 0 --mtbf-steps 1``: the planned cadence (5, as
+              the CPU test pins) and snapshots at steps 5 and 10.
+
+Phases 1-3 run in this process, in order.  Phases 4-17 then run in
 processes of their own (``python3 chip_smoke.py --phase KEY OUT``), up
 to three at once, each started when a slot is free and the device
 memory its runs need fits beside those running (``run_phases``); each
 one's output is printed when it ends, with its wall time, which
 includes whatever ran beside it.  The script prints its whole.  The line
 before the last is a JSON object with one entry per kernel (its launches
-summed over the counted runs of phases 3 to 15, and per run); the last
+summed over the counted runs of phases 3 to 17, and per run); the last
 line is ``{"ok": true, "device": {...}}``.
 """
+import dataclasses
 import gc
 import json
 import math
@@ -760,6 +789,48 @@ WIRE_ROUTER_ARGS = [a for a in MAIN_ARGS if a != "--decode-kernel"] + [
     "--router", "--engines", "2"]
 # seconds the decode worker may take, its start and model build included
 WIRE_WORKER_S = 600
+
+# router federation (phase 16): phase 15's comparison settings (raw spill,
+# fair preemption, every decode engine on the paged decode kernel) through
+# two routers of one engine pair each.  The origin holds 2 slots of 16
+# pages for 8 requests (window 4), so its backlog overflows; the peer 8
+# slots (window 16) and, as a command-line child, 2 requests of its own
+# (a router process ends when its own work does).  (c) counts phase 4's
+# int8 spill at 30 layers, 16 requests at the origin (window 8)
+# (a) and (b) run at 6 of the 30 layers (10 in PR 26's first calls: the
+# script then read 603.8 and 721.7 s on two hosts, over its ~700 s mark)
+FED_LAYERS = 6
+FED_BASE = [a for a in WIRE_CMP_ARGS if a not in ("--role", "both")] + [
+    "--router", "--engines", "1"]
+FED_ORIGIN_ARGS = FED_BASE + ["--batch", "2", "--pages", "16"]
+FED_PEER_ARGS = FED_BASE + ["--batch", "8", "--pages", "64",
+                            "--requests", "2"]
+FED_COUNT_BASE = [a for a in MAIN_ARGS if a != "--decode-kernel"] + [
+    "--router", "--engines", "1"]
+FED_COUNT_ORIGIN_ARGS = FED_COUNT_BASE + ["--batch", "4", "--pages", "32"]
+FED_COUNT_PEER_ARGS = FED_COUNT_BASE + ["--requests", "2"]
+FED_BF16_SHARE = WIRE_BF16_SHARE
+# seconds a federated child may take, its model build included
+FED_CHILD_S = 600
+
+# the planner (phase 17): phase 5's run with --policy auto (5 steps), then
+# the planner's checkpoint cadence for an MTBF of 1 step (10 steps): the
+# CPU test (tests/test_torch_planner.py) pins both, 0 layer groups stashed
+# and a save every 5 steps, from the H100's data-sheet figures
+PLAN_STEPS, PLAN_CKPT_STEPS, PLAN_MTBF, PLAN_EVERY = 5, 10, 1, 5
+_STEPS = TRAIN_ARGS.index("--steps")
+
+
+def _with_steps(argv, steps: int) -> list:
+    return argv[:_STEPS] + ["--steps", str(steps)] + argv[_STEPS + 2:]
+
+
+# phase 5's host-tier run cut to as many steps, timed beside auto's
+PLAN_HOST_ARGS = _with_steps(TRAIN_ARGS, PLAN_STEPS)
+PLAN_ARGS = ["auto" if a == "host" else a for a in PLAN_HOST_ARGS]
+PLAN_CKPT_ARGS = _with_steps(PLAN_ARGS, PLAN_CKPT_STEPS) + [
+    "--ckpt-tier", "host", "--ckpt-every", "0", "--mtbf-steps",
+    str(PLAN_MTBF)]
 
 
 def cut(arch: str, layers: int):
@@ -3820,6 +3891,467 @@ def check_wire_router_main_path() -> dict:
 
 
 # ---------------------------------------------------------------------------
+def fed_child(argv, layers: int, dtype: str, log):
+    """``serve.main(argv)`` in a child process: full-width smollm-135m at
+    ``layers`` layers in ``dtype``, every decode engine on the paged
+    decode kernel (``serve.main``'s keyword), its output to ``log``."""
+    code = ("import dataclasses, sys; sys.path.insert(0, 'src'); "
+            "from repro_torch.configs import ARCHS; "
+            "from repro_torch.launch import serve; "
+            "cfg = dataclasses.replace(ARCHS['smollm-135m'], "
+            f"num_layers={layers}, dtype={dtype!r}); "
+            f"serve.main({argv!r}, cfg=cfg, decode_kernel=True)")
+    return subprocess.Popen([sys.executable, "-c", code], cwd=REPO,
+                            stdout=log, stderr=subprocess.STDOUT)
+
+
+def beside_child(argv, layers: int, dtype: str, body):
+    """Run ``body(child, log_path)`` in this process beside a
+    :func:`fed_child` of ``argv``; then wait for the child (killed if it
+    outlives ``FED_CHILD_S`` or ``body`` raises).  Returns ``body``'s
+    result, the child's exit code and its output."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fed_") as d:
+        log_path = os.path.join(d, "child.log")
+        with open(log_path, "w") as log:
+            child = fed_child(argv, layers, dtype, log)
+            try:
+                out = body(child, log_path)
+                rc = child.wait(timeout=FED_CHILD_S)
+            finally:
+                if child.poll() is None:
+                    child.kill()
+                    child.wait(timeout=60)
+        with open(log_path) as f:
+            return out, child.returncode, f.read()
+
+
+def child_port(child, log_path: str) -> int:
+    """The port a ``--fed-listen 0`` child prints once its model is
+    built."""
+    deadline = time.time() + FED_CHILD_S
+    while time.time() < deadline:
+        with open(log_path) as f:
+            for ln in f:
+                if ln.startswith("federation: listening on"):
+                    return int(ln.split()[-1])
+        if child.poll() is not None:
+            with open(log_path) as f:
+                fail(f"the federated child exited early:\n{f.read()[-3000:]}")
+        time.sleep(0.2)
+    fail(f"the federated child opened no port in {FED_CHILD_S} s")
+
+
+def fed_counts(text: str) -> tuple:
+    """(forwarded, adopted) from a router process's ``fed[...]`` line."""
+    lines = [ln for ln in text.splitlines() if ln.startswith("fed[")]
+    if not lines:
+        fail("a federated router printed no fed[...] line")
+    fields = dict(f.split("=") for f in lines[-1].split("|")[0].split()[1:])
+    return int(fields["fwd"]), int(fields["adopted"])
+
+
+def fed_streams(fed) -> dict:
+    """The origin's own sessions' tokens by uid (adopted foreign sessions
+    left out); fails unless each finished its 64 tokens."""
+    from repro_torch.serve.router import FOREIGN_UID_BASE
+    own = {uid: s for uid, s in fed.router.sessions.items()
+           if uid < FOREIGN_UID_BASE}
+    if any(s.finish_reason != "length" or len(s.result()) != 64
+           for s in own.values()):
+        fail("federation: an origin request did not finish its 64 tokens: "
+             + str([(u, s.finish_reason, len(s.result()))
+                    for u, s in own.items()]))
+    return {uid: list(s.result()) for uid, s in own.items()}
+
+
+def by_uid(tokens_by: dict) -> dict:
+    """Keyed tokens ((uid, i) -> token) as streams by uid."""
+    out = {}
+    for (uid, i), tok in sorted(tokens_by.items()):
+        out.setdefault(uid, []).append(tok)
+    return out
+
+
+def fed_unfederated_run(dtype: str):
+    """The origin's settings through one unfederated router in this
+    process at ``FED_LAYERS``: keyed logits (on the host) and tokens."""
+    from repro_torch.launch import serve
+    from repro_torch.serve.quota import quota_from_cli
+    from repro_torch.serve.router import Router
+    args = serve.parse_args(FED_ORIGIN_ARGS)
+    model, params = serve.build_model_params(
+        args, dtype, cut("smollm-135m", FED_LAYERS))
+    pairs = serve.build_router_pairs(
+        args, model, params, quota_from_cli(args.tenant_quota,
+                                            args.page_codec),
+        decode_kernel=True)
+    router = Router(pairs, placement=args.placement)
+    logits, tokens, sessions, secs = wire_serve_run(router, pairs, args)
+    if len(sessions) != 8 or any(len(s.result()) != 64 for s in sessions):
+        fail("federation (a): the unfederated router cut a stream short")
+    print(f"    unfederated router, {dtype}: 8 requests, {router.now} "
+          f"steps, {secs:.1f} s", flush=True)
+    out = ({k: v.cpu() for k, v in logits.items()}, tokens)
+    del model, params, pairs, router, logits
+    free_device_memory()
+    return out
+
+
+def fed_pair(dtype: str, peer_channel=None):
+    """The origin (``FED_ORIGIN_ARGS``) and, without ``peer_channel``, a
+    peer (``FED_PEER_ARGS``) as FederatedRouters in this process over a
+    TCP pair, at ``FED_LAYERS`` in ``dtype``, one set of weights.  With
+    ``peer_channel`` the origin alone, peered over it.  Returns (feds,
+    pairs, the origin's args)."""
+    from repro_torch.launch import serve
+    from repro_torch.serve.quota import quota_from_cli
+    from repro_torch.serve.router import FederatedRouter, Router
+    from repro_torch.serve.transport import tcp_pair
+    oargs = serve.parse_args(FED_ORIGIN_ARGS)
+    model, params = serve.build_model_params(
+        oargs, dtype, cut("smollm-135m", FED_LAYERS))
+    feds, pairs = [], []
+    sides = [(oargs, "origin")]
+    if peer_channel is None:
+        sides.append((serve.parse_args(FED_PEER_ARGS), "peer"))
+    for args, name in sides:
+        ps = serve.build_router_pairs(
+            args, model, params, quota_from_cli(args.tenant_quota,
+                                                args.page_codec),
+            decode_kernel=True)
+        pairs += ps
+        feds.append(FederatedRouter(Router(ps, placement=args.placement),
+                                    name=name))
+    if peer_channel is None:
+        a, b = tcp_pair()
+        feds[0].add_peer("peer", a)
+        feds[1].add_peer("origin", b)
+    else:
+        feds[0].add_peer("peer", peer_channel)
+    return feds, pairs, oargs
+
+
+def step_feds(feds, label: str, limit_s: float = FED_CHILD_S) -> None:
+    """Step every federated router in turn until none has work."""
+    deadline = time.time() + limit_s
+    while any(f.has_work() for f in feds):
+        if time.time() > deadline:
+            fail(f"federation {label}: not drained in {limit_s} s")
+        for f in feds:
+            f.step()
+
+
+def fed_forced_run(forced):
+    """(a)'s bfloat16 run: the origin and the peer in this process over
+    a TCP pair, the origin's 8 requests only, every sampled row emitting
+    ``forced``'s token.  A forwarded session's rows are keyed by its
+    origin uid.  Returns (keyed logits on the host, forwarded,
+    adopted)."""
+    from collections import deque
+    from repro_torch.launch import serve
+    feds, pairs, args = fed_pair("bfloat16")
+    origin, peer = feds
+    rows, logits_by = deque(), {}
+
+    def keyed(sess, uid_of):
+        def emit(tok, orig=sess.emit):
+            key = (uid_of(), len(sess.tokens))
+            logits_by[key] = rows.popleft().cpu()
+            orig(forced[key])
+        sess.emit = emit
+        return sess
+
+    for pair in pairs:
+        for e in (pair.prefill, pair.decode):
+            def spy_sample(logits, sample=e._sample):
+                rows.extend(logits.float())
+                return sample(logits)
+            e._sample = spy_sample
+    adopt = peer.router.submit
+
+    def adopt_keyed(req, on_token=None):
+        sess = adopt(req, on_token=on_token)
+        return keyed(sess, lambda: peer._foreign[sess.uid][1])
+
+    peer.router.submit = adopt_keyed
+    for sess in serve.submit_requests(origin, args, {}, vocab=pairs[
+            0].prefill.model.cfg.vocab_size):
+        keyed(sess, lambda sess=sess: sess.uid)
+    try:
+        step_feds(feds, "(a) bf16")
+    finally:
+        for f in feds:
+            f.close()
+    if rows:
+        fail(f"federation (a): {len(rows)} sampled rows never emitted")
+    fed_streams(origin)
+    out = (logits_by, origin.forwarded, peer.adopted)
+    del feds, pairs, origin, peer
+    free_device_memory()
+    return out
+
+
+def check_fed_drain() -> None:
+    """(b), first half: the peer drains with the origin's forwards still
+    unread on its socket; it rejects every one, the origin requeues and
+    serves them at home, 0 dropped."""
+    from repro_torch.launch import serve
+    feds, pairs, args = fed_pair("bfloat16")
+    origin, peer = feds
+    serve.submit_requests(origin, args, {}, vocab=pairs[
+        0].prefill.model.cfg.vocab_size)
+    peer.step()                       # advertises its headroom
+    deadline = time.time() + 60
+    while not origin.forwarded and time.time() < deadline:
+        origin.step()
+    if not origin.forwarded:
+        fail("federation (b): the origin forwarded nothing to drain")
+    peer.drain()
+    try:
+        step_feds(feds, "(b) drain")
+    finally:
+        for f in feds:
+            f.close()
+    fed_streams(origin)
+    print(f"    drain: {origin.forwarded} forwarded, {peer.rejected} "
+          f"rejected, {peer.adopted} adopted, {origin.router.requeues} "
+          f"requeued at the origin", flush=True)
+    if peer.rejected != origin.forwarded or peer.adopted \
+            or origin.router.requeues < origin.forwarded:
+        fail("federation (b): the draining peer did not reject every "
+             "forward back home")
+    del feds, pairs, origin, peer
+    free_device_memory()
+
+
+def check_fed_peer_loss() -> None:
+    """(b), second half: a ``--router --peer`` child adopts the origin's
+    forwards and is killed before it can return them; the origin rewinds
+    them and finishes them at home, 0 dropped."""
+    from repro_torch.launch import serve
+    from repro_torch.serve.transport import tcp_accept, tcp_listen
+    listener, port = tcp_listen(port=0)
+
+    def body(child, log_path):
+        channel = tcp_accept(listener, timeout=FED_CHILD_S)
+        feds, pairs, args = fed_pair("bfloat16", peer_channel=channel)
+        origin = feds[0]
+        serve.submit_requests(origin, args, {}, vocab=pairs[
+            0].prefill.model.cfg.vocab_size)
+        deadline = time.time() + 120
+        while not origin.forwarded and time.time() < deadline:
+            origin.step()
+        for _ in range(16):             # the child adopts and decodes
+            origin.step()
+        outstanding = len(origin.peers["peer"].outstanding)
+        child.kill()
+        child.wait(timeout=60)
+        step_feds([origin], "(b) peer loss")
+        origin.close()
+        fed_streams(origin)
+        out = (origin.forwarded, outstanding, origin.router.requeues,
+               origin.peers["peer"].closed)
+        del feds, pairs, origin
+        free_device_memory()
+        return out
+
+    (forwarded, outstanding, requeues, closed), _, _ = beside_child(
+        FED_PEER_ARGS + ["--peer", f"127.0.0.1:{port}"], FED_LAYERS,
+        "bfloat16", body)
+    print(f"    peer loss: {forwarded} forwarded, {outstanding} in flight "
+          f"at the kill, {requeues} requeued, peer closed {closed}",
+          flush=True)
+    if not (forwarded and outstanding and closed and
+            requeues >= outstanding):
+        fail("federation (b): the lost peer's forwards did not come home")
+
+
+def check_fed_phase() -> None:
+    """Phase 16 (a) and (b) at ``FED_LAYERS``: the float32 federation in
+    two processes through the command line against one unfederated
+    router, the bfloat16 one in this process on that router's tokens,
+    then the drain and the peer loss."""
+    from repro_torch.launch import serve
+    cfg32 = dataclasses.replace(cut("smollm-135m", FED_LAYERS),
+                                dtype="float32")
+    runs = {}
+
+    def body(child, log_path):
+        # the unfederated runs while the child builds its model
+        for dtype in ("float32", "bfloat16"):
+            runs[dtype] = fed_unfederated_run(dtype)
+        port = child_port(child, log_path)
+        fed = serve.main(FED_ORIGIN_ARGS + ["--peer", f"127.0.0.1:{port}"],
+                         cfg=cfg32, decode_kernel=True)
+        out = (fed_streams(fed), fed.forwarded)
+        del fed
+        free_device_memory()
+        return out
+
+    (streams, forwarded), rc, text = beside_child(
+        FED_PEER_ARGS + ["--fed-listen", "0"], FED_LAYERS, "float32", body)
+    if rc != 0:
+        fail(f"federation (a): the --fed-listen child exited with {rc}:\n"
+             f"{text[-3000:]}")
+    _, adopted = fed_counts(text)
+    want = by_uid(runs["float32"][1])
+    same = sum(streams.get(uid) == toks for uid, toks in want.items())
+    print(f"  federation (a), float32, two processes: {forwarded} "
+          f"forwarded, {adopted} adopted by the peer; {same} of "
+          f"{len(want)} streams equal the unfederated router's", flush=True)
+    if not forwarded or adopted != forwarded:
+        fail(f"federation (a): forwarded {forwarded}, adopted {adopted}")
+    if streams.keys() != want.keys() or same != len(want):
+        fail("federation (a): a float32 stream left the unfederated "
+             "router's")
+    logits, fwd16, adopted16 = fed_forced_run(runs["bfloat16"][1])
+    bf16, f32 = shared_history(runs["bfloat16"], runs["float32"])
+    rounding = keyed_gap(bf16, f32, "federation (a) distance")
+    gap = keyed_gap(logits, runs["bfloat16"][0], "federation (a) bf16")
+    limit = tuple(FED_BF16_SHARE * d for d in rounding[:2])
+    print(f"  federation (a), bfloat16, one process: {fwd16} forwarded, "
+          f"{adopted16} adopted; on the unfederated tokens max abs err "
+          f"{gap[0]:.4g}, worst row's mean {gap[1]:.3g}, argmax {gap[2]} "
+          f"(limit {limit[0]:.4g}, {limit[1]:.3g}: {FED_BF16_SHARE} x the "
+          f"unfederated bf16 vs f32 distance over {len(bf16)} rows)",
+          flush=True)
+    if not fwd16 or adopted16 != fwd16:
+        fail(f"federation (a) bf16: forwarded {fwd16}, adopted {adopted16}")
+    if gap[0] > limit[0] or gap[1] > limit[1]:
+        fail(f"federation (a) bf16 logits beyond {FED_BF16_SHARE} x "
+             f"{rounding[:2]}")
+    check_fed_drain()
+    check_fed_peer_loss()
+
+
+def check_fed_main_path() -> dict:
+    """Phase 16 (c), counted, at full depth: the origin through the
+    command line in this process (``--router --peer``), the peer a
+    ``--router --fed-listen 0`` child; 16 requests at the origin, 2 at
+    the peer, int8 spill.  Every origin request finishes its 64 tokens
+    and forwarded = adopted > 0.  Returns both processes' launches."""
+    from repro_torch.launch import serve
+
+    def body(child, log_path):
+        port = child_port(child, log_path)
+        fed, launches = counted(lambda: serve.main(
+            FED_COUNT_ORIGIN_ARGS + ["--peer", f"127.0.0.1:{port}"],
+            decode_kernel=True))
+        streams = fed_streams(fed)
+        vocab = fed.router.engines[0].pair.model.cfg.vocab_size
+        if any(not 0 <= t < vocab for toks in streams.values()
+               for t in toks):
+            fail("federation (c): a token lies outside the vocabulary")
+        out = (len(streams), fed.forwarded, fed.wire_summary(), launches)
+        del fed
+        free_device_memory()
+        return out
+
+    (n, forwarded, sent, launches), rc, text = beside_child(
+        FED_COUNT_PEER_ARGS + ["--fed-listen", "0"], 30, "bfloat16", body)
+    if rc != 0:
+        fail(f"federation (c): the --fed-listen child exited with {rc}:\n"
+             f"{text[-3000:]}")
+    for ln in text.splitlines():
+        if ln.startswith(("router served", "fed[", "federation sent",
+                          "kernel launches", "ttft")):
+            print(f"  peer: {ln}", flush=True)
+    _, adopted = fed_counts(text)
+    child_launches = wire_launches(text)
+    total = {k: launches[k] + child_launches[k] for k in launches}
+    print(f"  federation (c): {n} origin requests of 64 tokens, "
+          f"{forwarded} forwarded, {adopted} adopted; origin {sent}",
+          flush=True)
+    print(f"  launches on the federated path: this process {launches}, "
+          f"the peer {child_launches}", flush=True)
+    if n != 16 or not forwarded or adopted != forwarded:
+        fail(f"federation (c): {n} requests, forwarded {forwarded}, "
+             f"adopted {adopted}")
+    if not (launches["paged_decode_attention"]
+            and child_launches["paged_decode_attention"]):
+        fail("federation (c): the paged decode did not run in both "
+             "clusters")
+    for name in ("int8_pack", "fp8_unpack"):
+        if not total[name]:
+            fail(f"kernel {name} was not launched on the federated path")
+    return total
+
+
+def check_planner() -> dict:
+    """Phase 17: ``--policy auto`` on phase 5's run keeps every layer
+    group (the plan the CPU test pins), so a step runs one flash launch a
+    layer and packs nothing; the plan's resident estimate beside the
+    card's peak allocation, and the step time and peak beside phase 5's
+    host-tier run of as many steps, run just before.  Then the planner's checkpoint cadence for
+    ``--mtbf-steps 1``: every ``PLAN_EVERY`` steps, snapshots there.
+    Returns each run's launches."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.dag import build_dag
+    from repro_torch.core.policy import summarize
+    from repro_torch.launch import train as train_cli
+
+    def median_ms(out):
+        ms = sorted(h["ms"] for h in out["history"][1:])
+        return ms[len(ms) // 2]
+
+    free_device_memory()
+    torch.cuda.reset_peak_memory_stats()
+    host = train_main(PLAN_HOST_ARGS)
+    host_ms, host_peak = median_ms(host), torch.cuda.max_memory_allocated()
+    del host
+    free_device_memory()
+    torch.cuda.reset_peak_memory_stats()
+    out, launches = counted(lambda: train_main(PLAN_ARGS))
+    peak = torch.cuda.max_memory_allocated()
+    model = out["model"]
+    losses = [h["loss"] for h in out["history"]]
+    cfg = model.cfg
+    report = model.runtime.plan_report(
+        build_dag(cfg, ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH,
+                                   "train")),
+        model_state_bytes=model.runtime.model_state_bytes(cfg))
+    print(f"  plan: {summarize(report)}", flush=True)
+    print(f"  stash_groups {model.stash_groups}; launches {launches}; "
+          f"losses {[round(x, 4) for x in losses]}; step time median over "
+          f"steps 2-{PLAN_STEPS}: auto {median_ms(out):.1f} ms, the host "
+          f"tier's (phase 5's run, just before) {host_ms:.1f} ms; planner "
+          f"resident {report.resident_bytes_per_dev / 2**30:.2f} GiB, the "
+          f"card's peak allocation {peak / 2**30:.2f} GiB (host tier "
+          f"{host_peak / 2**30:.2f} GiB)", flush=True)
+    if len(losses) != PLAN_STEPS or not all(map(math.isfinite, losses)):
+        fail(f"auto-policy losses not finite or missing: {losses}")
+    if model.stash_groups != 0 or report.count("keep") != TRAIN_LAYERS:
+        fail(f"auto stashed {model.stash_groups} groups; the CPU test pins "
+             "0 for this shape on the H100")
+    if launches["flash_attention_fwd"] != TRAIN_LAYERS * PLAN_STEPS \
+            or launches["fp8_pack"] or launches["fp8_unpack"]:
+        fail(f"auto-policy launches {launches}; want "
+             f"{TRAIN_LAYERS} flash a step and no pack")
+    if model.runtime.traffic_report().get("stash"):
+        fail("auto-policy training stashed a layer input")
+    del out, model
+    free_device_memory()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_plan_") as d:
+        out, ck_launches = counted(lambda: train_cli.main(
+            PLAN_CKPT_ARGS + ["--ckpt-dir", d]))
+        saved = sorted(int(n.split("_")[-1]) for n in os.listdir(d)
+                       if n.startswith("step_"))
+    every = out["ckpt"].every
+    save = out["mgr"].runtime.traffic_report().get("ckpt_save", {})
+    print(f"  cadence: every {every} steps for --mtbf-steps {PLAN_MTBF}, "
+          f"snapshots at steps {saved}, ckpt_save {save.get('calls')} "
+          f"calls {save.get('wire_bytes')} B; launches {ck_launches}",
+          flush=True)
+    if every != PLAN_EVERY or saved != list(range(
+            every, PLAN_CKPT_STEPS + 1, every)) or not save.get("calls"):
+        fail(f"planned cadence {every} (want {PLAN_EVERY}), snapshots at "
+             f"{saved}")
+    del out
+    free_device_memory()
+    return {"train_auto": launches, "train_cadence": ck_launches}
+
+
+# ---------------------------------------------------------------------------
 def same_bits(x: torch.Tensor, y: torch.Tensor) -> bool:
     """Equal dtype, shape and bits (NaNs and signed zeros included)."""
     if x.dtype != y.dtype or x.shape != y.shape:
@@ -4106,7 +4638,7 @@ def check_ckpt_chaos():
 
 
 # ---------------------------------------------------------------------------
-# Phases 4-15 run in processes of their own, up to PARALLEL at a time:
+# Phases 4-17 run in processes of their own, up to PARALLEL at a time:
 # most serving is bound by the host, so phases share the card and its
 # cores (each comparison is bit for bit or on fixed tokens within one
 # process, so a neighbour changes no result; times printed by a phase
@@ -4125,7 +4657,7 @@ PHASE_TIMEOUT_S = 900
 
 
 def phase_table() -> list:
-    """Phases 4-15 in the order they are started: (key, title, run,
+    """Phases 4-17 in the order they are started: (key, title, run,
     device GiB).  ``run()`` returns the counted launches of the phase's
     main paths, by path name and kernel.  Phase 9, the longest, goes
     first and 11b, which needs nearly the whole card, last; the order
@@ -4164,6 +4696,11 @@ def phase_table() -> list:
         free_device_memory()
         return {"serve_wire": check_wire_router_main_path()}
 
+    def federation():
+        check_fed_phase()
+        free_device_memory()
+        return {"serve_fed": check_fed_main_path()}
+
     return [
         ("9", f"phase 9: training main path (full-width zamba2-2.7b, bf16, "
               f"batch {TRAIN_BATCH} x {TRAIN_SEQ}, host tier, fp8 stash)",
@@ -4188,6 +4725,10 @@ def phase_table() -> list:
         ("15", f"phase 15: wire transport and router (full-width "
                f"smollm-135m, bf16; comparisons at {WIRE_LAYERS} of 30 "
                f"layers, the counted two-process router at 30)", wire, 4),
+        ("16", f"phase 16: router federation (full-width smollm-135m; "
+               f"comparisons, drain and peer loss at {FED_LAYERS} of 30 "
+               "layers, the counted two-process federation at 30)",
+         federation, 6),
         ("14", f"phase 14: checkpoints as a memory tier, faults and chaos "
                f"(full-width smollm-135m, bf16, batch {TRAIN_BATCH} x "
                f"{TRAIN_SEQ}, {CKPT_STEPS} steps, async host checkpoint "
@@ -4213,23 +4754,27 @@ def phase_table() -> list:
               f"{ZAMBA_LAYERS} blocks)",
          serve("serve_zamba2", check_zamba2_serve_logits,
                check_zamba2_serve_main_path), 6),
+        ("11a", f"phase 11a: MoE serving (full-width mixtral-8x7b, bf16, "
+                f"int8 spill; comparison and counted runs at "
+                f"{MIXTRAL_SERVE_LAYERS} of 32 layers)",
+         serve("serve_mixtral", check_mixtral_serve_logits,
+               check_mixtral_serve_main_path), 54),
         ("10", "phase 10: prefix-sharing serving main path (full-width "
                "h2o-danube-1.8b, bf16, a 328-token shared head, int8 spill; "
                f"comparison and counted runs at {DANUBE_CMP_LAYERS} of 24 "
                "layers)",
          serve("serve_danube", check_danube_prefix_logits,
                check_danube_serve_main_path), 5),
-        ("11a", f"phase 11a: MoE serving (full-width mixtral-8x7b, bf16, "
-                f"int8 spill; comparison and counted runs at "
-                f"{MIXTRAL_SERVE_LAYERS} of 32 layers)",
-         serve("serve_mixtral", check_mixtral_serve_logits,
-               check_mixtral_serve_main_path), 54),
         ("13", f"phase 13: disaggregated serving (full-width smollm-135m, "
                f"bf16, a prefill / decode pair over a transfer tier; "
                f"comparisons at {DISAGG_CMP_LAYERS} of 30 layers, the "
                f"counted run at {DISAGG_COUNT_LAYERS})",
          serve("serve_disagg", check_disagg_logits,
                check_disagg_serve_main_path), 2),
+        ("17", f"phase 17: the KEEP / POOL / RECOMPUTE planner (full-width "
+               f"smollm-135m, bf16, batch {TRAIN_BATCH} x {TRAIN_SEQ}, "
+               "--policy auto; the planned checkpoint cadence)",
+         check_planner, 16),
         ("11b", f"phase 11b: MoE training (full-width mixtral-8x7b, bf16, "
                 f"{MIXTRAL_TRAIN_LAYERS} of 32 layers, batch {TRAIN_BATCH} "
                 f"x {TRAIN_SEQ}, host tier, fp8 stash)",
@@ -4262,7 +4807,7 @@ def kill_group(proc) -> None:
 
 
 def run_phases(t_start: float, out_dir: str) -> dict:
-    """Phases 4-15, each in a process of its own, started in
+    """Phases 4-17, each in a process of its own, started in
     ``phase_table``'s order whenever a slot is free and the device memory
     allows (the first that fits goes next).  Prints each phase's output
     when it ends; fails as soon as one fails.  Returns the launches by
@@ -4406,7 +4951,7 @@ def main() -> None:
               f"({r['bound_by']})", flush=True)
     free_device_memory()
 
-    phase(f"phases 4-15: up to {PARALLEL} processes at once, within "
+    phase(f"phases 4-17: up to {PARALLEL} processes at once, within "
           f"{DEVICE_BUDGET_GIB} GiB of device memory")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_phases_") as d:
         by_path.update(run_phases(t_start, d))

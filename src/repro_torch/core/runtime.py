@@ -14,6 +14,11 @@ contract.  The serving stack spills cold KV through one
   backward: x' = tier.fetch(payload)        (then the payload is discarded)
             recompute the layer from x' under autograd, take its gradient
 
+The planner's entry points (:meth:`MemoryRuntime.plan_report`,
+:meth:`MemoryRuntime.resolve_stash_groups`) price the runtime's own tier
+with its chip's figures, so ``auto`` stashes only the layer groups the
+KEEP / POOL / RECOMPUTE plan evicts.
+
 Unlike the reference, which meters per *trace* (one stash and one fetch
 per wrapped kind under ``scan`` + ``jit``), the port runs eagerly and
 meters every executed call.
@@ -27,6 +32,8 @@ import torch
 
 from repro_torch import hw, tree
 from repro_torch.configs.base import MemoryPlan, MeshPlan
+from repro_torch.core import policy as policy_mod
+from repro_torch.core.dag import LayerDAG, build_dag
 from repro_torch.core.tiers import (MemoryTier, SpillPayload, SpillTier,
                                     TransferHints, build_tier)
 
@@ -170,6 +177,53 @@ class MemoryRuntime:
                 tier.discard(payload)
                 return
             tier = getattr(tier, "inner", None)
+
+    # ------------------------------------------------------------------
+    # planning (KEEP/POOL/RECOMPUTE through the tier cost contract)
+    def plan_report(self, dag: LayerDAG,
+                    model_state_bytes: float = 0.0,
+                    pipeline=None, n_micro_candidates=None,
+                    checkpoint=None, ckpt_tier=None):
+        return policy_mod.plan_memory(dag, self.plan, self.memory,
+                                      chip=self.chip,
+                                      model_state_bytes=model_state_bytes,
+                                      tier=self.tier, pipeline=pipeline,
+                                      n_micro_candidates=n_micro_candidates,
+                                      checkpoint=checkpoint,
+                                      ckpt_tier=ckpt_tier)
+
+    def stash_fraction(self, dag: LayerDAG,
+                       model_state_bytes: float = 0.0) -> float:
+        """Fraction of layers this runtime stashes: 0 when the tier keeps
+        everything resident, 1 for stash-all tiers, cost-model-derived
+        otherwise."""
+        if not self.offloads:
+            return 0.0
+        if self.tier.stash_all:
+            return 1.0
+        report = self.plan_report(dag, model_state_bytes=model_state_bytes)
+        pooled = report.count("pool") + report.count("recompute")
+        return pooled / max(len(report.decisions), 1)
+
+    def model_state_bytes(self, cfg) -> float:
+        """Parameters, gradients and optimizer moments of ``cfg``: bf16
+        weights and gradients, float32 master weights, 32- or 8-bit
+        moments (the reference runtime's arithmetic)."""
+        opt_bytes = 2 + (8 if self.memory.opt_state_bits == 32 else 2) + 4
+        return cfg.param_count() * opt_bytes
+
+    def resolve_stash_groups(self, cfg, shape, n_groups: int) -> int:
+        """Number of layer groups to stash, the first ones (largest reuse
+        distance first, matching the planner's eviction order)."""
+        if not self.offloads:
+            return 0
+        if self.tier.stash_all:
+            return n_groups
+        frac = self.stash_fraction(
+            build_dag(cfg, shape),
+            model_state_bytes=self.model_state_bytes(cfg))
+        k = int(round(n_groups * frac))
+        return max(0, min(n_groups, k))
 
     # ------------------------------------------------------------------
     # the one training wrapper

@@ -7,6 +7,7 @@ Each backing store is a :class:`MemoryTier` with a uniform contract:
   ``fetch(payload, hints)`` copy back onto the compute device
   ``bandwidth(plan, chip)`` per-device stash/fetch bandwidth (cost model)
   ``capacity(accountant)``  bytes one device can address through the tier
+  ``account(acct, nbytes)`` charge a stashed tensor to the boot-time map
 
 Tiers ported so far:
 
@@ -25,7 +26,11 @@ Tiers ported so far:
   (:func:`build_ckpt_tier` stacks the snapshot codec on top).
 
 Policies map to tiers through :func:`build_tier` — the one place that
-branches on ``MemoryPlan.policy`` strings.
+branches on ``MemoryPlan.policy`` strings.  Each registered policy also
+says whether its tier stashes every layer (``stash_all``: host, mcdla,
+spill) or lets the KEEP / POOL / RECOMPUTE planner choose (``auto``, over
+the pooled tier).  :class:`TierSpec` is the tiers' analytic twin for the
+simulator (sim/topology.py).
 """
 from __future__ import annotations
 
@@ -69,10 +74,13 @@ class MemoryTier(abc.ABC):
     kind: str = "abstract"
 
     def __init__(self, plan: MeshPlan, memory: MemoryPlan,
-                 device: torch.device):
+                 device: torch.device, *, stash_all: bool = True):
         self.plan = plan
         self.memory = memory
         self.device = torch.device(device)
+        # policy trait: stash every layer (paper's stress-test mode) vs let
+        # the KEEP/POOL/RECOMPUTE planner choose a stash fraction
+        self.stash_all = stash_all
 
     @abc.abstractmethod
     def stash(self, x: torch.Tensor, hints: TransferHints) -> Payload:
@@ -89,6 +97,10 @@ class MemoryTier(abc.ABC):
     @abc.abstractmethod
     def capacity(self, accountant: PoolAccountant) -> float:
         """Bytes one device can address through this tier."""
+
+    def account(self, accountant: PoolAccountant, nbytes: float) -> None:
+        """Charge a stashed tensor of global ``nbytes`` to the memory map."""
+        accountant.alloc_pooled(nbytes)
 
     @property
     def offloads(self) -> bool:
@@ -124,6 +136,10 @@ class DeviceTier(MemoryTier):
 
     def capacity(self, accountant: PoolAccountant) -> float:
         return accountant.budget
+
+    def account(self, accountant: PoolAccountant, nbytes: float) -> None:
+        # global bytes stay resident, batch-sharded across the devices
+        accountant.alloc_local(nbytes / max(accountant.plan.num_devices, 1))
 
     @property
     def offloads(self) -> bool:
@@ -189,6 +205,10 @@ class HostTier(MemoryTier):
     def capacity(self, accountant: PoolAccountant) -> float:
         return hw.HOST_DRAM_BYTES
 
+    def account(self, accountant: PoolAccountant, nbytes: float) -> None:
+        # each device parks its own shard in host DRAM
+        accountant.alloc_host(nbytes / max(accountant.plan.num_devices, 1))
+
 
 # ---------------------------------------------------------------------------
 class CompressedTier(MemoryTier):
@@ -206,7 +226,8 @@ class CompressedTier(MemoryTier):
     kind = "compressed"
 
     def __init__(self, inner: MemoryTier, codec: str = "fp8"):
-        super().__init__(inner.plan, inner.memory, inner.device)
+        super().__init__(inner.plan, inner.memory, inner.device,
+                         stash_all=inner.stash_all)
         self.inner = inner
         self.codec = get_codec(codec)
 
@@ -230,6 +251,9 @@ class CompressedTier(MemoryTier):
 
     def capacity(self, accountant: PoolAccountant) -> float:
         return self.inner.capacity(accountant)
+
+    def account(self, accountant: PoolAccountant, nbytes: float) -> None:
+        self.inner.account(accountant, nbytes * self.codec.ratio)
 
     @property
     def offloads(self) -> bool:
@@ -273,7 +297,8 @@ class SpillTier(MemoryTier):
 
     def __init__(self, primary: MemoryTier, overflow: MemoryTier,
                  primary_budget: Optional[float] = None):
-        super().__init__(primary.plan, primary.memory, primary.device)
+        super().__init__(primary.plan, primary.memory, primary.device,
+                         stash_all=primary.stash_all)
         self.primary = primary
         self.overflow = overflow
         if primary_budget is None:
@@ -327,6 +352,12 @@ class SpillTier(MemoryTier):
     def capacity(self, accountant: PoolAccountant) -> float:
         return self.primary_budget + self.overflow.capacity(accountant)
 
+    def account(self, accountant: PoolAccountant, nbytes: float) -> None:
+        if nbytes <= self.primary_headroom():
+            self.primary.account(accountant, nbytes)
+        else:
+            self.overflow.account(accountant, nbytes)
+
     def payload_ratio(self) -> float:
         return self.primary.payload_ratio()
 
@@ -363,7 +394,8 @@ class CheckpointTier(MemoryTier):
     kind = "ckpt"
 
     def __init__(self, inner: MemoryTier, keep: int = 1):
-        super().__init__(inner.plan, inner.memory, inner.device)
+        super().__init__(inner.plan, inner.memory, inner.device,
+                         stash_all=inner.stash_all)
         self.inner = inner
         self.keep = max(1, keep)
 
@@ -384,6 +416,9 @@ class CheckpointTier(MemoryTier):
 
     def capacity(self, accountant: PoolAccountant) -> float:
         return self.inner.capacity(accountant) / self.keep
+
+    def account(self, accountant: PoolAccountant, nbytes: float) -> None:
+        self.inner.account(accountant, nbytes)
 
     @property
     def offloads(self) -> bool:
@@ -412,8 +447,8 @@ def build_ckpt_tier(memory: MemoryPlan, plan: MeshPlan, device: torch.device,
     if backing not in _TIER_REGISTRY:
         raise KeyError(f"unknown checkpoint backing {backing!r}; "
                        f"registered: {registered_policies()}")
-    tier: MemoryTier = CheckpointTier(
-        _TIER_REGISTRY[backing](memory, plan, device), keep=keep)
+    tier: MemoryTier = CheckpointTier(_bind(backing, memory, plan, device),
+                                      keep=keep)
     if codec != "none":
         tier = CompressedTier(tier, codec)
     return tier
@@ -422,11 +457,28 @@ def build_ckpt_tier(memory: MemoryPlan, plan: MeshPlan, device: torch.device,
 # ---------------------------------------------------------------------------
 # tier registry: MemoryPlan.policy -> tier
 TierFactory = Callable[[MemoryPlan, MeshPlan, torch.device], MemoryTier]
-_TIER_REGISTRY: Dict[str, TierFactory] = {}
 
 
-def register_tier(policy: str, factory: TierFactory) -> None:
-    _TIER_REGISTRY[policy] = factory
+@dataclasses.dataclass(frozen=True)
+class TierBinding:
+    factory: TierFactory
+    stash_all: bool          # stash every layer vs planner-chosen fraction
+
+
+_TIER_REGISTRY: Dict[str, TierBinding] = {}
+
+
+def register_tier(policy: str, factory: TierFactory,
+                  stash_all: bool = True) -> None:
+    _TIER_REGISTRY[policy] = TierBinding(factory, stash_all)
+
+
+def _bind(policy: str, memory: MemoryPlan, plan: MeshPlan,
+          device: torch.device) -> MemoryTier:
+    binding = _TIER_REGISTRY[policy]
+    tier = binding.factory(memory, plan, device)
+    tier.stash_all = binding.stash_all
+    return tier
 
 
 def registered_policies() -> Tuple[str, ...]:
@@ -440,20 +492,21 @@ def build_tier(memory: MemoryPlan, plan: MeshPlan,
     ``compress != 'none'`` wraps the tier in a :class:`CompressedTier` (a
     no-op stack on the device tier, which never moves bytes)."""
     if memory.policy not in _TIER_REGISTRY:
-        hint = (" ('auto' needs the KEEP/POOL/RECOMPUTE planner, "
-                "core/dag.py and core/policy.py, which port with slice 5)"
-                if memory.policy == "auto" else "")
         raise KeyError(f"unknown memory policy {memory.policy!r}; "
-                       f"registered: {registered_policies()}{hint}")
-    tier = _TIER_REGISTRY[memory.policy](memory, plan, device)
+                       f"registered: {registered_policies()}")
+    tier = _bind(memory.policy, memory, plan, device)
     if memory.compress != "none" and tier.offloads:
         tier = CompressedTier(tier, memory.compress)
     return tier
 
 
-register_tier("none", lambda m, p, d: DeviceTier(p, m, d))
+register_tier("none", lambda m, p, d: DeviceTier(p, m, d), stash_all=False)
 register_tier("host", lambda m, p, d: HostTier(p, m, d))
 register_tier("mcdla", lambda m, p, d: PooledHbmTier(p, m, d))
+# "auto" uses the same pooled tier; the KEEP/POOL/RECOMPUTE planner
+# (core/policy.py) decides the stash fraction instead of stashing all
+register_tier("auto", lambda m, p, d: PooledHbmTier(p, m, d),
+              stash_all=False)
 # "spill": pooled HBM until the pool's capacity contract is spent, host
 # DRAM past it
 register_tier("spill", lambda m, p, d: SpillTier(PooledHbmTier(p, m, d),
@@ -462,3 +515,34 @@ register_tier("spill", lambda m, p, d: SpillTier(PooledHbmTier(p, m, d),
 # builds it with another backing and the snapshot codec)
 register_tier("checkpoint",
               lambda m, p, d: CheckpointTier(HostTier(p, m, d)))
+
+
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class TierSpec:
+    """Hardware-model-level bandwidth/capacity contract of a backing store.
+
+    The executable tiers above move real tensors; this spec is their
+    analytic twin used by ``sim/`` to model the paper's DC/HC/MC design
+    points as tier configurations (same contract, no tensors).
+    """
+
+    kind: str                          # device | host | pooled
+    bw_per_device: float               # stash/fetch bytes/s per device
+    shared_bw: float = 0.0             # host-side cap (0 = uncapped)
+    uses_cpu: bool = False             # traffic counts against CPU memory BW
+    capacity_bytes: float = float("inf")
+
+    @property
+    def is_oracle(self) -> bool:
+        return self.kind == "device"
+
+    def effective_bw(self, n_devices: int, n_sockets: int = 2) -> float:
+        """Per-device bandwidth when ``n_devices`` stream concurrently —
+        the paper's §I observation that shared host links divide."""
+        if self.is_oracle:
+            return float("inf")
+        bw = self.bw_per_device
+        if self.shared_bw > 0:
+            bw = min(bw, self.shared_bw * n_sockets / max(n_devices, 1))
+        return bw

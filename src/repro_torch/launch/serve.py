@@ -49,8 +49,11 @@ stripes each handoff over N connections (both halves must agree),
 ``--drain-engine`` after N router steps (the run fails if a session is
 dropped), and ``--trace N`` replays N sessions of the synthetic diurnal /
 burst / shared-prefix traffic (sim/workloads.py) instead of the uniform
-requests.  Router federation (``--peer``, ``--fed-listen``) is not
-ported yet: both flags exit naming ROADMAP item A11b.
+requests.  ``--fed-listen PORT`` (0: pick one, printed as ``federation:
+listening on PORT``) and ``--peer HOST:PORT`` federate two such routers
+(serve/router.py ``FederatedRouter``): work neither engine of a cluster
+has room for is forwarded to the peer cluster, served there and its
+tokens sent home.  ``--trace`` does not compose with federation.
 """
 from __future__ import annotations
 
@@ -157,9 +160,11 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="SO_SNDBUF/SO_RCVBUF for wire TCP sockets "
                          "(default: kernel autotuning)")
     ap.add_argument("--peer", default=None, metavar="HOST:PORT",
-                    help="router federation (not ported yet: ROADMAP A11b)")
+                    help="router mode: federate with the router at this "
+                         "address (forward admissions we cannot place)")
     ap.add_argument("--fed-listen", type=int, default=None,
-                    help="router federation (not ported yet: ROADMAP A11b)")
+                    help="router mode: accept one federation peer on this "
+                         "port (0: ephemeral, printed)")
     ap.add_argument("--listen", type=int, default=None,
                     help="router engine 0 serves prefill over TCP on this "
                          "port (0: ephemeral, printed); the peer runs "
@@ -175,9 +180,6 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="router mode: replay N synthetic traffic "
                          "sessions (diurnal/burst/shared-prefix mix)")
     args = ap.parse_args(argv)
-    if args.peer is not None or args.fed_listen is not None:
-        ap.error("--peer / --fed-listen federate routers, which is not "
-                 "ported yet (ROADMAP A11b)")
     if args.role == "decode" and args.connect is None:
         ap.error("--role decode needs a peer feeding the transfer queue; "
                  "use --role both for the in-process loopback, or pass "
@@ -203,6 +205,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     if args.wire_streams > 1 and args.transport == "shm":
         ap.error("--transport shm is header-only on one control socket; "
                  "striping it is meaningless (drop --wire-streams)")
+    if args.trace and (args.peer or args.fed_listen is not None):
+        ap.error("--trace replays against one cluster; it does not "
+                 "compose with federation (--peer/--fed-listen)")
     return args
 
 
@@ -332,7 +337,8 @@ def transfer_summary(queue: TransferQueue) -> str:
 def main(argv=None, cfg: Optional[ModelConfig] = None,
          **engine_kwargs) -> Union[Engine, DisaggPair]:
     """Serve the synthetic requests and print the summary; returns the
-    engine, the pair, the router (``--router``) or the decode worker's
+    engine, the pair, the router (``--router``; the federated router over
+    it with ``--peer`` / ``--fed-listen``) or the decode worker's
     engine (``--role decode``) for callers that check it.  ``cfg`` and ``engine_kwargs``: as :func:`build_engine`'s
     (the command line never sets them)."""
     args = parse_args(argv)
@@ -550,17 +556,43 @@ def build_router_pairs(args: argparse.Namespace, model, params,
     return pairs
 
 
+def federate_cli(args: argparse.Namespace, router):
+    """The :class:`~repro_torch.serve.router.FederatedRouter` over
+    ``router`` peered by ``--fed-listen`` (blocks until the peer
+    connects) or ``--peer``; None without either flag."""
+    from repro_torch.serve.router import FederatedRouter
+    from repro_torch.serve.transport import (tcp_accept, tcp_connect,
+                                             tcp_listen)
+    if args.peer is None and args.fed_listen is None:
+        return None
+    fed = FederatedRouter(router)
+    if args.fed_listen is not None:
+        listener, port = tcp_listen(port=args.fed_listen)
+        print(f"federation: listening on {port}", flush=True)
+        fed.add_peer("peer", tcp_accept(listener, timeout=ACCEPT_TIMEOUT,
+                                        bufsize=args.wire_bufsize))
+    else:
+        host, _, port = args.peer.rpartition(":")
+        fed.add_peer("peer", tcp_connect(host or "127.0.0.1", int(port),
+                                         bufsize=args.wire_bufsize))
+    print(f"federation: peered ({fed.describe()})", flush=True)
+    return fed
+
+
 def run_router(args: argparse.Namespace, cfg: Optional[ModelConfig] = None,
                **engine_kwargs):
     """``--router``: the cluster front-end over ``--engines`` pairs serves
     the synthetic requests (or a ``--trace``) and prints the summary;
-    returns the router.  Raises if a session was dropped."""
+    returns the router, or with ``--peer`` / ``--fed-listen`` the
+    federated router over it.  Raises if a session was dropped."""
     from repro_torch.serve.router import Router, replay_trace
     from repro_torch.sim.workloads import TrafficSpec, generate_traffic
     model, params = build_model_params(args, cfg=cfg)
     quota = quota_from_cli(args.tenant_quota, args.page_codec)
     pairs = build_router_pairs(args, model, params, quota, **engine_kwargs)
     router = Router(pairs, placement=args.placement)
+    fed = federate_cli(args, router)
+    driver = fed if fed is not None else router
     print(router.describe())
     print(f"model: {model.cfg.name} {model.cfg.num_layers}L "
           f"d_model={model.cfg.d_model} {model.cfg.dtype} on {model.device}")
@@ -578,12 +610,16 @@ def run_router(args: argparse.Namespace, cfg: Optional[ModelConfig] = None,
                                 arrivals_per_step=2.0,
                                 on_step=drain_hook(args, router))
         else:
-            submit_requests(router, args, first_token_at,
+            submit_requests(driver, args, first_token_at,
                             vocab=model.cfg.vocab_size)
-            done = router.run(on_step=drain_hook(args, router))
+            done = driver.run(on_step=drain_hook(args, router))
         sync()
         dt = time.perf_counter() - t0
     finally:
+        if fed is not None:
+            print(fed.describe())
+            fed.close()
+            print(fed.wire_summary())
         for pair in pairs:
             if hasattr(pair, "close"):      # a wire pair: BYE the worker
                 pair.close()
@@ -615,7 +651,7 @@ def run_router(args: argparse.Namespace, cfg: Optional[ModelConfig] = None,
         f"{k}={n - launches[k]}" for k, n in kernel_launches().items()))
     if dropped:
         raise RuntimeError(f"{dropped} sessions dropped")
-    return router
+    return driver
 
 
 if __name__ == "__main__":

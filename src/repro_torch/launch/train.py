@@ -3,8 +3,11 @@
 Trains on one device, ``--device cuda`` by default, under the memory-
 overlaying runtime: with ``--policy host|mcdla|spill`` every layer's input
 is stashed to that tier (through the ``--compress`` codec's kernels) and
-the layer recomputed in backward.  Without ``--smoke`` the configuration
-runs at its full published width with random weights from ``--seed``;
+the layer recomputed in backward; with ``--policy auto`` the KEEP / POOL /
+RECOMPUTE planner (core/policy.py) chooses how many layer groups to stash
+under the card's HBM budget and the run logs its plan (``plan: ...``).
+Without ``--smoke`` the configuration runs at its full published width
+with random weights from ``--seed``;
 ``--smoke`` takes its ``.reduced()`` twin at batch 4 x 128 tokens.  Each
 step logs ``step N loss=... grad_norm=... lr=... (... ms)``; the run ends
 with the ``memory traffic: ...`` line of the tier's stash/fetch bytes.
@@ -13,14 +16,14 @@ A run resumes from the newest valid snapshot in ``--ckpt-dir`` (the
 reference's default, ``/tmp/repro_ckpt``, under ``$TMPDIR`` where that is
 set: give each run its own) and saves every ``max(25, steps // 4)``
 steps, or ``--ckpt-every`` through the checkpoint tier of ``--ckpt-tier``
-(``--ckpt-codec``, ``--ckpt-async``, ``--ckpt-shards``); SIGTERM saves at
-the next step boundary and exits.  ``--chaos`` injects kills,
-preemptions, corrupt snapshots and stage losses
+(``--ckpt-codec``, ``--ckpt-async``, ``--ckpt-shards``); with ``--ckpt-every
+0`` the planner picks the cadence (Young-Daly against its modelled step
+time and ``--mtbf-steps``) and logs it (``checkpoint plan: every=K
+...``).  SIGTERM saves at the next step boundary and exits.  ``--chaos``
+injects kills, preemptions, corrupt snapshots and stage losses
 (``kill@3:2,corrupt@4,preempt@7`` or ``random:<seed>``); a recovery
 rewinds the prefetched stream.  The reference's ``--pipeline*`` and
-``--multi-pod`` flags wait for ROADMAP A8 / A9, the ``auto`` policy and
-the planner-chosen cadence (``--ckpt-every 0`` with ``--ckpt-tier``, and
-the ``--mtbf-steps`` it reads) for A12.
+``--multi-pod`` flags wait for ROADMAP A8 / A9.
 """
 from __future__ import annotations
 
@@ -30,10 +33,13 @@ import logging
 import sys
 from typing import Any, Dict, List, Optional, Tuple
 
+from repro_torch import hw
 from repro_torch.configs import (MemoryPlan, RunConfig, SHAPES_BY_NAME,
                                  TrainConfig, get_arch)
 from repro_torch.configs.base import (DEFAULT_CKPT_DIR, CheckpointPlan,
                                       ModelConfig, ShapeConfig)
+from repro_torch.core.dag import build_dag
+from repro_torch.core.policy import MemoryPlanReport, plan_memory, summarize
 from repro_torch.data.pipeline import Prefetcher, SyntheticLM
 from repro_torch.models.model import Model, build_model
 from repro_torch.models.transformer import arch_group
@@ -60,7 +66,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--policy", default="mcdla",
                     help="memory tier of the stashed layer inputs: none | "
-                         "host | mcdla | spill")
+                         "host | mcdla | spill | auto (the planner's split)")
     ap.add_argument("--placement", default="bw_aware")
     ap.add_argument("--compress", default="none",
                     help="stash codec: none | fp8 | int8 | blocksparse")
@@ -76,13 +82,13 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "bytes)")
     ap.add_argument("--ckpt-every", type=int, default=0,
                     help="checkpoint cadence in steps (0 with --ckpt-tier: "
-                         "the planner's cadence, not ported yet)")
+                         "the planner's Young-Daly cadence)")
     ap.add_argument("--ckpt-async", action="store_true",
                     help="write, CRC and commit overlapping the next steps")
     ap.add_argument("--ckpt-shards", type=int, default=1)
-    ap.add_argument("--mtbf-steps", type=int, default=None,
+    ap.add_argument("--mtbf-steps", type=int, default=10_000,
                     help="expected steps between failures (the cadence "
-                         "planner's, not ported yet)")
+                         "planner's)")
     ap.add_argument("--chaos", default="",
                     help="fault-injection schedule, e.g. "
                          "'kill@3,corrupt@5,stage_loss@7:1,preempt@9', or "
@@ -92,26 +98,33 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def checkpoint_plan(args: argparse.Namespace) -> CheckpointPlan:
-    """The run's :class:`CheckpointPlan` (disabled without --ckpt-tier)."""
-    if args.mtbf_steps is not None:
-        raise SystemExit(
-            "--mtbf-steps feeds only the planner's Young-Daly cadence "
-            "(--ckpt-tier with --ckpt-every 0), which needs plan_memory's "
-            "analytic step time (ROADMAP A12)")
+    """The run's :class:`CheckpointPlan` (disabled without --ckpt-tier;
+    ``every`` 0 until :func:`plan_cadence` resolves it)."""
     ckpt = CheckpointPlan(enabled=bool(args.ckpt_tier),
                           tier=args.ckpt_tier or "host",
                           codec=args.ckpt_codec, every=args.ckpt_every,
                           async_saves=args.ckpt_async,
-                          shards=args.ckpt_shards)
+                          shards=args.ckpt_shards,
+                          mtbf_steps=args.mtbf_steps)
     if ckpt.enabled:
         ckpt.validate()
-        if ckpt.every == 0:
-            raise SystemExit(
-                "--ckpt-tier with --ckpt-every 0 asks for the planner's "
-                "Young-Daly cadence, which needs plan_memory's analytic "
-                "step time (core/dag.py and core/policy.plan_memory, "
-                "ROADMAP A12): give --ckpt-every N")
     return ckpt
+
+
+def plan_cadence(model: Model, shape: ShapeConfig, ckpt: CheckpointPlan,
+                 chip: hw.Chip = hw.H100
+                 ) -> Tuple[CheckpointPlan, MemoryPlanReport]:
+    """The planner's save cadence for ``--ckpt-every 0``: a Young-Daly
+    sweep against the modelled step time of ``model`` at ``shape`` through
+    the checkpoint tier stack (the reference's ``launch/train.py``
+    arithmetic, its optimizer-state bytes included).  Returns the plan
+    with ``every`` set and the planner's report."""
+    cfg, memory = model.cfg, model.memory
+    opt_bytes = 4 + 2 * memory.opt_state_bits // 8
+    report = plan_memory(build_dag(cfg, shape), model.plan, memory, chip=chip,
+                         model_state_bytes=cfg.param_count() * opt_bytes,
+                         checkpoint=ckpt)
+    return dataclasses.replace(ckpt, every=report.checkpoint.every), report
 
 
 def build_run(args: argparse.Namespace, dtype: Optional[str] = None,
@@ -147,26 +160,40 @@ def build_run(args: argparse.Namespace, dtype: Optional[str] = None,
 
 def main(argv=None, cfg: Optional[ModelConfig] = None) -> Dict[str, Any]:
     """Train and log; returns ``{"model", "tc", "source", "state",
-    "history", "mgr", "chaos"}`` (history: the logged steps' metrics; mgr:
-    the CheckpointManager; chaos: the ChaosMonkey or None) for callers
-    that check the run.  ``cfg``: as :func:`build_run`'s (the command line
-    never sets it).  SIGTERM / SIGINT handlers are installed for the run
-    and restored after it."""
+    "history", "mgr", "chaos", "ckpt"}`` (history: the logged steps'
+    metrics; mgr: the CheckpointManager; chaos: the ChaosMonkey or None;
+    ckpt: the CheckpointPlan in effect, its planned cadence in ``every``)
+    for callers that check the run.  ``cfg``: as :func:`build_run`'s (the
+    command line never sets it).  SIGTERM / SIGINT handlers are installed
+    for the run and restored after it."""
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO, stream=sys.stdout,
                         format="%(asctime)s %(name)s %(message)s")
     ckpt = checkpoint_plan(args)
     model, tc, source = build_run(args, cfg=cfg)
     cfg = model.cfg
+    log = logging.getLogger(__name__)
     group, n_groups = arch_group(cfg)
-    stashed = n_groups if model.runtime.offloads else 0
+    stashed = model.stash_groups
     # an encoder-decoder's encoder layers are wrapped (stashed) too
-    subs = stashed * len(group) + (cfg.encoder_layers if stashed else 0)
+    subs = stashed * len(group) + (cfg.encoder_layers
+                                   if model.runtime.offloads else 0)
     print(f"model: {cfg.name} {cfg.num_layers}L d_model={cfg.d_model} "
           f"{cfg.dtype} on {model.device}; tier "
           f"{model.runtime.tier.describe()}, {stashed} of {n_groups} "
           f"layer groups stashed ({subs} sub-layers); "
           f"batch {source.batch} x {source.seq}", flush=True)
+    shape = ShapeConfig("train", source.seq, source.batch, "train")
+    if args.policy == "auto":
+        log.info("plan: %s", summarize(model.runtime.plan_report(
+            build_dag(cfg, shape),
+            model_state_bytes=model.runtime.model_state_bytes(cfg))))
+    if ckpt.enabled and ckpt.every == 0:
+        ckpt, report = plan_cadence(model, shape, ckpt)
+        c = report.checkpoint
+        log.info("checkpoint plan: every=%d steps (save=%.2fs overhead="
+                 "%.2fms/step lost=%.2fms/step via %s)", c.every, c.save_s,
+                 1e3 * c.overhead_s, 1e3 * c.lost_s, c.tier)
     chaos = None
     if args.chaos:
         if args.chaos.startswith("random:"):
@@ -175,15 +202,14 @@ def main(argv=None, cfg: Optional[ModelConfig] = None) -> Dict[str, Any]:
         else:
             sched = ChaosSchedule.parse(args.chaos)
         chaos = ChaosMonkey(sched, seed=tc.seed)
-        logging.getLogger(__name__).info("chaos schedule: %s", sched.spec())
+        log.info("chaos schedule: %s", sched.spec())
     history: List[Dict[str, float]] = []
     hooks = {"on_log": lambda step, m: history.append(dict(m, step=step))}
     mgr = make_manager(model, tc, ckpt, chaos)
     elastic = None
     if chaos is not None:
-        run = RunConfig(model=cfg, shape=ShapeConfig(
-            "train", source.seq, source.batch, "train"),
-            memory=model.memory, train=tc, ckpt=ckpt)
+        run = RunConfig(model=cfg, shape=shape, memory=model.memory,
+                        train=tc, ckpt=ckpt)
         elastic = ElasticController(run, mgr, device=model.device)
     data = Prefetcher(source, model.device)
     handler = FaultHandler()
@@ -194,7 +220,7 @@ def main(argv=None, cfg: Optional[ModelConfig] = None) -> Dict[str, Any]:
         data.close()
         handler.uninstall()
     return {"model": model, "tc": tc, "source": source, "state": state,
-            "history": history, "mgr": mgr, "chaos": chaos}
+            "history": history, "mgr": mgr, "chaos": chaos, "ckpt": ckpt}
 
 
 if __name__ == "__main__":

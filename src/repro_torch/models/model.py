@@ -1,9 +1,9 @@
 """Model facade — one object per (architecture x memory plan x device).
 
 Wraps the transformer stack with parameter init, the training loss
-(chunked CE over the tied table, every sub-layer wrapped by the memory
-runtime), cache construction and the serving entry points (prefill /
-decode).
+(chunked CE over the tied table, the sub-layers of the first
+``stash_groups`` layer groups wrapped by the memory runtime), cache
+construction and the serving entry points (prefill / decode).
 """
 from __future__ import annotations
 
@@ -39,6 +39,7 @@ class Model:
     plan: MeshPlan = SINGLE_DEVICE
     memory: MemoryPlan = MemoryPlan(policy="none")
     device: Any = "cuda"
+    stash_groups: Optional[int] = None     # None -> stash all
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -69,7 +70,8 @@ class Model:
         h, aux = tfm.forward_train(params, ctx, batch["tokens"],
                                    batch["positions"],
                                    frames=batch.get("frames"),
-                                   patches=batch.get("patches"))
+                                   patches=batch.get("patches"),
+                                   stash_groups=self.stash_groups)
         table = params["embed"] if cfg.tie_embeddings else params["unembed"]
         labels = batch["labels"]
         mask = (labels >= 0).float()
@@ -113,8 +115,14 @@ class Model:
 
 
 def build_model(run: RunConfig, device="cuda") -> Model:
-    """The Model for a run on one device (``run.mesh`` is not used: this
-    slice has no mesh).  Every policy ported so far stashes all layer
-    groups when its tier offloads (host, mcdla, spill) and none otherwise;
-    the planner-chosen split of ``auto`` ports with slice 5."""
-    return Model(cfg=run.model, memory=run.memory, device=device)
+    """The Model for a run on one device (``run.mesh`` is not used: the
+    port has no mesh), resolving the memory tier's stash split through
+    the MemoryRuntime: every layer group for a stash-all tier (host,
+    mcdla, spill), none when the tier does not offload, and for ``auto``
+    the groups the KEEP / POOL / RECOMPUTE planner evicts at
+    ``run.shape``."""
+    model = Model(cfg=run.model, memory=run.memory, device=device)
+    _, n_groups = tfm.arch_group(run.model)
+    model.stash_groups = model.runtime.resolve_stash_groups(
+        run.model, run.shape, n_groups)
+    return model

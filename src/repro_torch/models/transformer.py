@@ -267,18 +267,21 @@ def encode(params: Params, ctx: ModelContext, frames: torch.Tensor
 def forward_train(params: Params, ctx: ModelContext, tokens: torch.Tensor,
                   positions: torch.Tensor,
                   frames: Optional[torch.Tensor] = None,
-                  patches: Optional[torch.Tensor] = None
+                  patches: Optional[torch.Tensor] = None,
+                  stash_groups: Optional[int] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (hidden (B, S, D), aux_loss).
 
-    Every sub-layer runs wrapped by the memory runtime (``ctx.wrap``:
-    input stashed to the tier, layer recomputed in backward; the bare
-    layer when the tier does not offload), the hybrid's shared block at
-    each of its sites too: every site takes the one unstacked
+    The sub-layers of the first ``stash_groups`` layer groups (all of them
+    when None) run wrapped by the memory runtime (``ctx.wrap``: input
+    stashed to the tier, layer recomputed in backward; the bare layer when
+    the tier does not offload); the rest run bare, autograd keeping their
+    intermediates (the reference's unstashed second scan: the ``auto``
+    planner's KEEP).  The hybrid's shared block stays inside its group, at
+    each of its sites: every site takes the one unstacked
     ``params["shared"]``, so autograd sums the sites' gradients of those
     leaves, as ``jax.grad`` sums over the reference's closed-over
-    ``params["shared"]``.  The reference's split into a stashed and an
-    unstashed scan serves the ``auto`` planner, which ports with slice 5.
+    ``params["shared"]``.
 
     An encoder-decoder first encodes ``frames`` (each encoder layer
     wrapped too) and hands the encoder's states to every decoder layer as
@@ -297,13 +300,18 @@ def forward_train(params: Params, ctx: ModelContext, tokens: torch.Tensor,
         return functools.partial(_train_sublayer, ctx, kind)
 
     wrapped = {k: ctx.wrap(f"{k}_layer", bare(k)) for k in set(group)}
+    unwrapped = {k: bare(k) for k in set(group)}
     views = {j: _layer_views(params["groups"][f"sub_{j}"])
              for j, kind in enumerate(group) if kind != "shared"}
+    if stash_groups is None:
+        stash_groups = n_groups
+    g1 = max(0, min(n_groups, stash_groups))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer in range(n_groups):
+        fns = wrapped if layer < g1 else unwrapped
         for j, kind in enumerate(group):
             p = params["shared"] if kind == "shared" else views[j](layer)
-            x, a = wrapped[kind](p, x, positions, *extra)
+            x, a = fns[kind](p, x, positions, *extra)
             aux = aux + a
     return apply_norm(cfg, params["final_norm"], x), aux
 

@@ -32,6 +32,13 @@ engine detaches once idle (zero dropped sessions).  :meth:`fail` models
 engine loss: every non-done session on the engine is reset and requeued
 for a fresh prefill elsewhere — at temperature 0 the re-decoded stream is
 identical, so a lost engine costs latency, never tokens.
+
+Federation: a :class:`FederatedRouter` peers one cluster's router with
+others over the wire framing (any transport ``Channel``; TCP across
+processes or hosts, :func:`federate` in memory).  Work no local engine
+has room for is forwarded to a peer advertising headroom and its token
+stream comes home; a draining peer rejects forwards and a lost peer's
+forwards requeue locally, so neither drops a session.
 """
 from __future__ import annotations
 
@@ -436,6 +443,337 @@ class Router:
         states = " ".join(e.describe() for e in self.engines)
         return (f"router[{self.policy.describe()} queue={len(self.queue)} "
                 f"now={self.now} | {states}]")
+
+
+# ---------------------------------------------------------------------------
+# router-to-router federation: clusters peer over the same wire framing
+class _Peer:
+    """Cluster-side state for one federated peer."""
+
+    def __init__(self, name: str, channel):
+        self.name = name
+        self.channel = channel
+        self.free = 0                   # last advertised placeable headroom
+        self.draining = False
+        self.closed = False
+        self.outstanding: Dict[int, Session] = {}   # fid -> origin session
+
+    def sendable(self) -> bool:
+        return not (self.draining or self.closed)
+
+
+#: local uids for foreign (forwarded-in) sessions live far above any
+#: origin-minted uid so the two spaces can never collide on one ledger
+FOREIGN_UID_BASE = 1 << 40
+#: seconds an idle federated run waits on its peers' sockets a step
+IDLE_WAIT_S = 0.005
+
+
+class FederatedRouter:
+    """A cluster :class:`Router` peered with remote clusters over the wire.
+
+    Peers speak the transport framing (``K_FWD`` / ``K_FWD_RESULT`` /
+    ``K_FWD_REJECT`` / ``K_LOAD`` / ``K_QUOTA`` / ``K_DRAIN`` / ``K_BYE``)
+    over any :class:`~repro_torch.serve.transport.Channel`.  Each step the
+    local router places what it can; if the cluster queue is still
+    backed up and a peer advertises free headroom (LOAD frames), the
+    queue head is forwarded (FWD) — the peer admits it as a *foreign*
+    session under a collision-free local uid, serves it to completion,
+    and returns the token stream (FWD_RESULT), which is applied to the
+    origin :class:`Session` object exactly like a wire RESULT.  A
+    draining peer rejects inbound forwards (FWD_REJECT → the origin
+    requeues locally; zero dropped sessions) and broadcasts DRAIN so
+    origins stop selecting it.
+
+    Quota stays consistent across clusters without a central ledger:
+    every step each cluster broadcasts its local
+    :meth:`~repro_torch.serve.quota.QuotaManager.usage` snapshot (QUOTA), and
+    each receiver installs it as a remote overlay
+    (:meth:`~repro_torch.serve.quota.QuotaManager.set_remote_usage`) that
+    ``can_admit`` counts — one tenant's page budget binds over the sum
+    of local + remote holdings, eventually consistent at the broadcast
+    cadence."""
+
+    def __init__(self, router: Router, *, name: str = "cluster"):
+        self.router = router
+        self.name = name
+        self.peers: Dict[str, _Peer] = {}
+        self.draining = False
+        # foreign sessions this cluster serves for its peers
+        self._foreign: Dict[int, tuple] = {}    # local uid -> (peer, fid)
+        self._foreign_done: set = set()         # result already returned
+        self._next_foreign = FOREIGN_UID_BASE
+        self.forwarded = 0
+        self.adopted = 0
+        self.rejected = 0
+        self.sent: Dict[int, List[int]] = {}    # frame kind -> [bytes, frames]
+
+    # ------------------------------------------------------------------
+    def add_peer(self, name: str, channel) -> None:
+        if name in self.peers:
+            raise ValueError(f"peer {name!r} already registered")
+        self.peers[name] = _Peer(name, channel)
+
+    @property
+    def quota(self):
+        return self.router.engines[0].pair.prefill.quota
+
+    def submit(self, req: Request, on_token=None) -> Session:
+        return self.router.submit(req, on_token=on_token)
+
+    def cancel(self, uid: int) -> None:
+        self.router.cancel(uid)
+
+    # ------------------------------------------------------------------
+    def _send(self, peer: _Peer, kind: int, msg: Dict[str, Any]) -> None:
+        from repro_torch.serve import transport as tfm
+        try:
+            n = tfm._send_msg(peer.channel, kind, msg)
+        except tfm.TransportError as e:
+            log.warning("peer %s unreachable, detaching: %s", peer.name, e)
+            self._lose_peer(peer)
+            return
+        meter = self.sent.setdefault(kind, [0, 0])
+        meter[0] += n
+        meter[1] += 1
+
+    def _lose_peer(self, peer: _Peer) -> None:
+        """A dead peer's forwarded sessions requeue locally — the
+        federation analogue of :meth:`Router.fail`."""
+        peer.closed = True
+        if self.quota is not None:
+            self.quota.set_remote_usage(peer.name, None)
+        for fid, sess in list(peer.outstanding.items()):
+            if not sess.done:
+                sess.rewind()
+                self.router.queue.append(sess)
+                self.router.requeues += 1
+        peer.outstanding.clear()
+
+    # ------------------------------------------------------------------
+    def _pump_peer(self, peer: _Peer) -> None:
+        from repro_torch.serve import transport as tfm
+        while True:
+            try:
+                got = tfm._poll_msg(peer.channel, retries=2, backoff=0.0,
+                                    sleep=lambda s: None)
+            except tfm.TransportError as e:
+                log.warning("peer %s channel failed: %s", peer.name, e)
+                self._lose_peer(peer)
+                return
+            if got is None:
+                return
+            kind, msg = got
+            if kind == tfm.K_LOAD:
+                peer.free = int(msg["free"])
+            elif kind == tfm.K_QUOTA:
+                if self.quota is not None:
+                    self.quota.set_remote_usage(peer.name, msg["usage"])
+            elif kind == tfm.K_FWD:
+                self._adopt_forward(peer, msg)
+            elif kind == tfm.K_FWD_RESULT:
+                self._apply_forward_result(peer, msg)
+            elif kind == tfm.K_FWD_REJECT:
+                sess = peer.outstanding.pop(msg["fid"], None)
+                if sess is not None and not sess.done:
+                    sess.rewind()
+                    self.router.queue.append(sess)
+                    self.router.requeues += 1
+            elif kind == tfm.K_DRAIN:
+                peer.draining = True
+                peer.free = 0
+            elif kind == tfm.K_BYE:
+                self._lose_peer(peer)
+            else:
+                raise tfm.WireFormatError(
+                    f"unexpected federation frame kind {kind}")
+
+    def _adopt_forward(self, peer: _Peer, msg: Dict[str, Any]) -> None:
+        if self.draining:
+            self.rejected += 1
+            self._send(peer, _k().K_FWD_REJECT, {"fid": msg["fid"]})
+            return
+        uid = self._next_foreign
+        self._next_foreign += 1
+        req = Request(uid=uid, prompt=np.asarray(msg["prompt"]),
+                      max_new_tokens=msg["max_new_tokens"],
+                      eos_id=msg["eos_id"], priority=msg["priority"],
+                      tenant=msg["tenant"], deadline=msg["deadline"])
+        self.router.submit(req)
+        self._foreign[uid] = (peer.name, msg["fid"])
+        self.adopted += 1
+
+    def _apply_forward_result(self, peer: _Peer, msg: Dict[str, Any]) -> None:
+        sess = peer.outstanding.pop(msg["fid"], None)
+        if self.quota is not None:
+            self.quota.release_uid(msg["fid"])
+        if sess is None:
+            return
+        if not sess.done:
+            # same list object: keep the Request.out_tokens alias intact
+            del sess.tokens[:]
+            sess.tokens.extend(msg["tokens"])
+            sess.length = int(msg["length"])
+            sess.finish(msg["finish_reason"])
+        self.router.finished_at.setdefault(sess.uid, self.router.now)
+
+    def _flush_foreign_results(self) -> None:
+        for uid, (peer_name, fid) in list(self._foreign.items()):
+            sess = self.router.sessions.get(uid)
+            peer = self.peers.get(peer_name)
+            if sess is None or not sess.done or uid in self._foreign_done:
+                continue
+            self._foreign_done.add(uid)
+            if peer is not None and not peer.closed:
+                self._send(peer, _k().K_FWD_RESULT, {
+                    "fid": fid,
+                    "tokens": list(sess.tokens),
+                    "length": int(sess.length),
+                    "finish_reason": sess.finish_reason,
+                })
+
+    # ------------------------------------------------------------------
+    def _forward_backlog(self) -> int:
+        """Forward queue-head sessions no local engine has headroom for."""
+        if self.draining:
+            return 0
+        sent = 0
+        while self.router.queue:
+            if any(v.headroom > 0 for v in self.router._views()):
+                break                    # local placement will take it
+            targets = [p for p in self.peers.values()
+                       if p.sendable() and p.free > 0]
+            if not targets:
+                break
+            sess = self.router.queue.popleft()
+            if sess.done:
+                continue
+            peer = max(targets, key=lambda p: p.free)
+            peer.free -= 1               # optimistic; refreshed by LOAD
+            self._send(peer, _k().K_FWD, {
+                "fid": sess.uid,
+                "prompt": np.asarray(sess.request.prompt),
+                "max_new_tokens": int(sess.request.max_new_tokens),
+                "eos_id": int(sess.request.eos_id),
+                "priority": int(getattr(sess.request, "priority", 0)),
+                "tenant": sess.tenant,
+                "deadline": getattr(sess.request, "deadline", None),
+            })
+            if peer.closed:              # send failed, session requeued
+                continue
+            peer.outstanding[sess.uid] = sess
+            self.forwarded += 1
+            sent += 1
+        return sent
+
+    def _broadcast_state(self) -> None:
+        free = sum(max(0, v.headroom) for v in self.router._views())
+        if self.draining:
+            free = 0
+        usage = self.quota.usage() if self.quota is not None else None
+        for peer in list(self.peers.values()):
+            if peer.closed:
+                continue
+            self._send(peer, _k().K_LOAD, {"free": free})
+            if usage is not None and not peer.closed:
+                self._send(peer, _k().K_QUOTA, {"usage": usage})
+
+    # ------------------------------------------------------------------
+    def step(self) -> int:
+        for peer in list(self.peers.values()):
+            if not peer.closed:
+                self._pump_peer(peer)
+        busy = self.router.step()
+        busy += self._forward_backlog()
+        self._flush_foreign_results()
+        self._broadcast_state()
+        return busy
+
+    def drain(self) -> None:
+        """Drain this whole cluster: stop forwarding out, reject inbound
+        forwards, broadcast DRAIN; local + already-adopted work retires
+        in place and forwarded-out sessions ride to completion on their
+        peers."""
+        self.draining = True
+        for peer in list(self.peers.values()):
+            if not peer.closed:
+                self._send(peer, _k().K_DRAIN, {})
+
+    def close(self) -> None:
+        for peer in list(self.peers.values()):
+            if not peer.closed:
+                self._send(peer, _k().K_BYE, {})
+                peer.closed = True
+
+    # ------------------------------------------------------------------
+    def has_work(self) -> bool:
+        return (self.router.has_work()
+                or any(p.outstanding for p in self.peers.values())
+                or any(uid not in self._foreign_done
+                       for uid in self._foreign))
+
+    def run(self, max_steps: int = 100_000,
+            on_step: Optional[Callable[["FederatedRouter"], None]] = None
+            ) -> List[Request]:
+        """Step until this cluster has no work.  A step that finds nothing
+        to do locally (only forwards outstanding on peers) waits up to
+        ``IDLE_WAIT_S`` for a peer's socket to turn readable instead of
+        spinning: a spinning origin would send a LOAD and a QUOTA frame
+        a step to a peer that has to read them all, and use up
+        ``max_steps`` in seconds."""
+        for _ in range(max_steps):
+            if not self.has_work():
+                break
+            busy = self.step()
+            if on_step is not None:
+                on_step(self)
+            if not busy and not self.router.has_work():
+                self._await_peers(IDLE_WAIT_S)
+        return [s.request for s in self.router.sessions.values() if s.done]
+
+    def _await_peers(self, timeout: float) -> None:
+        for peer in self.peers.values():
+            waiter = getattr(peer.channel, "wait_readable", None)
+            if not peer.closed and waiter is not None and waiter(timeout):
+                return
+
+    def describe(self) -> str:
+        peers = " ".join(
+            f"{p.name}:{'x' if p.closed else ('drain' if p.draining else p.free)}"
+            for p in self.peers.values())
+        return (f"fed[{self.name} fwd={self.forwarded} "
+                f"adopted={self.adopted} | {peers or 'no peers'}]")
+
+    def wire_summary(self) -> str:
+        """The bytes and frames this cluster sent its peers, by kind."""
+        names = _k()._KIND_NAMES
+        return "federation sent: " + (", ".join(
+            f"{names[k]} {b} B/{n}x" for k, (b, n) in sorted(
+                self.sent.items())) or "nothing")
+
+
+def _k():
+    """Frame-kind namespace (import deferred: transport imports session,
+    router imports transport lazily to stay cycle-free)."""
+    from repro_torch.serve import transport
+    return transport
+
+
+def federate(routers: List[Router], *, names: Optional[List[str]] = None,
+             max_chunk: Optional[int] = None) -> List[FederatedRouter]:
+    """Peer N local routers into a full federation mesh over in-memory
+    channels (the same-process harness; cross-host uses TCP channels via
+    :meth:`FederatedRouter.add_peer`)."""
+    from repro_torch.serve.transport import memory_pair
+
+    names = names or [f"cluster{i}" for i in range(len(routers))]
+    feds = [FederatedRouter(r, name=n) for r, n in zip(routers, names)]
+    for i in range(len(feds)):
+        for j in range(i + 1, len(feds)):
+            a, b = memory_pair(max_chunk)
+            feds[i].add_peer(names[j], a)
+            feds[j].add_peer(names[i], b)
+    return feds
 
 
 # ---------------------------------------------------------------------------

@@ -100,6 +100,9 @@ _KIND_NAMES = {K_HANDOFF: "HANDOFF", K_ACK: "ACK", K_CANCEL: "CANCEL",
 
 #: seconds a blocking socket call may wait before it fails
 SOCKET_TIMEOUT = 120.0
+#: seconds an in-process pair waits for a frame it sent to land, and its
+#: nap between polls
+SETTLE_S, SETTLE_NAP_S = 30.0, 1e-4
 
 
 class TransportError(RuntimeError):
@@ -1390,7 +1393,21 @@ def _control(channel: Channel, runtime: MemoryRuntime, kind: int,
     runtime.meter_transfer("kv_wire", nbytes, nbytes)
 
 
-class WireSender:
+class _WireEnd:
+    """Message counts of one end of the wire: ``sent_msgs`` messages sent
+    whole, ``taken_msgs`` messages taken off the channel (what
+    :meth:`WirePair.step` settles on)."""
+    channel: Channel
+    runtime: MemoryRuntime
+    sent_msgs = 0
+    taken_msgs = 0
+
+    def _control(self, kind: int, msg: Dict[str, Any]) -> None:
+        _control(self.channel, self.runtime, kind, msg)
+        self.sent_msgs += 1
+
+
+class WireSender(_WireEnd):
     """Prefill-side half of the wire: duck-types the ``TransferQueue``
     surface the prefill-role Engine drives (``has_room`` / ``publish`` /
     ``depth`` / ``sweep_cancelled`` / ``traffic_report``).
@@ -1485,6 +1502,7 @@ class WireSender:
             if partial:
                 self.runtime.meter_transfer("kv_wire", partial, partial)
             raise
+        self.sent_msgs += 1
         self.runtime.meter_transfer("kv_publish", raw, wire, calls=calls)
         self.runtime.meter_transfer("kv_wire", nbytes, nbytes)
         self._inflight[sess.uid] = sess
@@ -1500,6 +1518,7 @@ class WireSender:
             if got is None:
                 return
             kind, msg = got
+            self.taken_msgs += 1
             if kind == K_ACK:
                 sess = self._inflight.pop(msg["uid"], None)
                 if sess is not None:
@@ -1540,14 +1559,13 @@ class WireSender:
             for uid, sess in list(store.items()):
                 if sess.done:
                     del store[uid]
-                    _control(self.channel, self.runtime, K_CANCEL,
-                             {"uid": uid})
+                    self._control(K_CANCEL, {"uid": uid})
                     self.swept += 1
                     swept.append(sess)
         return swept
 
     def send_bye(self) -> None:
-        _control(self.channel, self.runtime, K_BYE, {})
+        self._control(K_BYE, {})
 
     # ------------------------------------------------------------------
     def traffic_report(self) -> Dict[str, Any]:
@@ -1570,7 +1588,7 @@ class WireSender:
                 f"shipped={self.shipped_pages}p results={self.results}]")
 
 
-class WireReceiver:
+class WireReceiver(_WireEnd):
     """Decode-side half of the wire: duck-types the ``TransferQueue``
     surface the decode-role Engine and ``PagedKVCacheManager.adopt`` read
     (``next_ready`` / ``requeue`` / ``fetch_pages`` / ``fetch_slot_leaves``
@@ -1622,6 +1640,7 @@ class WireReceiver:
             if got is None:
                 return
             kind, msg = got
+            self.taken_msgs += 1
             if kind == K_HANDOFF:
                 if msg["schema"] != SCHEMA_VERSION:
                     raise WireFormatError(
@@ -1670,7 +1689,7 @@ class WireReceiver:
 
     # ------------------------------------------------------------------
     def _ack(self, handoff: WireHandoff) -> None:
-        _control(self.channel, self.runtime, K_ACK, {"uid": handoff.uid})
+        self._control(K_ACK, {"uid": handoff.uid})
 
     def fetch_pages(self, handoff: WireHandoff) -> List[Any]:
         """The shipped pages on the device, in logical order (metered
@@ -1718,7 +1737,7 @@ class WireReceiver:
         for uid, sess in list(self._sessions.items()):
             if not sess.done or uid in self._result_sent or uid in parked:
                 continue
-            _control(self.channel, self.runtime, K_RESULT, {
+            self._control(K_RESULT, {
                 "uid": int(uid),
                 "tokens": [int(t) for t in sess.tokens],
                 "length": int(sess.length),
@@ -1733,7 +1752,7 @@ class WireReceiver:
                    and uid not in parked)
 
     def send_bye(self) -> None:
-        _control(self.channel, self.runtime, K_BYE, {})
+        self._control(K_BYE, {})
 
     # ------------------------------------------------------------------
     def traffic_report(self) -> Dict[str, Any]:
@@ -1867,10 +1886,27 @@ class WirePair:
 
     def step(self) -> int:
         shipped = self.prefill.step()
+        self._settle(self.sender, self.receiver)
         active = self.decode.step()
         self.receiver.flush_results()
+        self._settle(self.receiver, self.sender)
         self.sender.pump()
         return shipped + active
+
+    @staticmethod
+    def _settle(src: _WireEnd, dst: _WireEnd) -> None:
+        """Take in at ``dst`` every message ``src`` has sent whole.  Both
+        halves share this process, so each step sees what the loopback
+        pair's would however late the channel lands a frame (a socket
+        under load can land one after the peer's next poll); a message a
+        fault lost is given up after ``SETTLE_S``."""
+        deadline = time.monotonic() + SETTLE_S
+        while dst.taken_msgs < src.sent_msgs:
+            dst.pump()
+            if (dst.taken_msgs >= src.sent_msgs or dst.channel.closed
+                    or time.monotonic() > deadline):
+                return
+            time.sleep(SETTLE_NAP_S)
 
     def has_work(self) -> bool:
         return (self.prefill.scheduler.has_waiting()

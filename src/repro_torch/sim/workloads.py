@@ -1,23 +1,172 @@
-"""Synthetic LLM serving traffic: the router's session feed.
+"""The paper's 8 benchmarks (Table III) as per-layer FLOPs/bytes DAGs, and
+synthetic LLM serving traffic: the router's session feed.
 
-A seeded generator for session arrivals with the structure real serving
-traffic has and uniform Poisson lacks: a diurnal intensity cycle, bursts
-(correlated arrival clumps), a shared-prefix mixture (many sessions reuse
-a few system prompts, which prefix-affinity placement exploits), mixed SLO
-classes and a tenant mix.  A trace replays scaled down against the real
-router (serve/router.py ``replay_trace``).  One PRNG stream drives
-everything, so a spec gives the same sessions in this package and in the
-reference.
+4 ImageNet CNNs (AlexNet, GoogLeNet, VGG-E=VGG-19, ResNet-34) with the
+published layer shapes, and 4 DeepBench-style RNNs (vanilla GEMV, 2 LSTMs,
+1 GRU) with DeepBench-suite hidden sizes.  Batch 512 (paper §IV), fp32
+(paper-era training precision).  Cheap layers (ReLU/pool/norm) are folded —
+they are re-computed rather than stashed (paper footnote 4), as the
+executable runtime recomputes a wrapped layer's intermediates.
+
+The traffic generator draws session arrivals with the structure real
+serving traffic has and uniform Poisson lacks: a diurnal intensity cycle,
+bursts (correlated arrival clumps), a shared-prefix mixture (many sessions
+reuse a few system prompts, which prefix-affinity placement exploits),
+mixed SLO classes and a tenant mix.  A trace replays scaled down against
+the real router (serve/router.py ``replay_trace``) and analytically at
+full scale against DC/HC/MC TierSpecs (sim/simulator.py
+``simulate_serving``).  One PRNG stream drives everything, so a spec gives
+the same sessions in this package and in the reference.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import numpy as np
 
+from repro_torch.core.dag import LayerDAG, LayerNode
 
+BATCH = 512
+F32 = 4
+
+
+def _conv(name: str, cin: int, cout: int, k: int, hout: int,
+          batch: int = BATCH) -> LayerNode:
+    flops = 2.0 * batch * cout * hout * hout * cin * k * k
+    act = batch * cout * hout * hout * F32
+    w = cout * cin * k * k * F32
+    return LayerNode(name, flops_fwd=flops, saved_bytes=act, weight_bytes=w)
+
+
+def _fc(name: str, din: int, dout: int, batch: int = BATCH) -> LayerNode:
+    return LayerNode(name, flops_fwd=2.0 * batch * din * dout,
+                     saved_bytes=batch * dout * F32,
+                     weight_bytes=din * dout * F32, fc=True)
+
+
+# ---------------------------------------------------------------------------
+def alexnet(batch: int = BATCH) -> LayerDAG:
+    return LayerDAG([
+        _conv("conv1", 3, 96, 11, 55, batch),
+        _conv("conv2", 96, 256, 5, 27, batch),
+        _conv("conv3", 256, 384, 3, 13, batch),
+        _conv("conv4", 384, 384, 3, 13, batch),
+        _conv("conv5", 384, 256, 3, 13, batch),
+        _fc("fc6", 9216, 4096, batch),
+        _fc("fc7", 4096, 4096, batch),
+        _fc("fc8", 4096, 1000, batch),
+    ])
+
+
+def vgg_e(batch: int = BATCH) -> LayerDAG:
+    layers: List[LayerNode] = []
+    spec = [(3, 64, 224), (64, 64, 224), (64, 128, 112), (128, 128, 112),
+            (128, 256, 56), (256, 256, 56), (256, 256, 56), (256, 256, 56),
+            (256, 512, 28), (512, 512, 28), (512, 512, 28), (512, 512, 28),
+            (512, 512, 14), (512, 512, 14), (512, 512, 14), (512, 512, 14)]
+    for i, (cin, cout, h) in enumerate(spec):
+        layers.append(_conv(f"conv{i}", cin, cout, 3, h, batch))
+    layers += [_fc("fc6", 25088, 4096, batch), _fc("fc7", 4096, 4096, batch),
+               _fc("fc8", 4096, 1000, batch)]
+    return LayerDAG(layers)
+
+
+_INCEPTION = [
+    # (cin, 1x1, 3red, 3x3, 5red, 5x5, pool, spatial)
+    ("3a", 192, 64, 96, 128, 16, 32, 32, 28),
+    ("3b", 256, 128, 128, 192, 32, 96, 64, 28),
+    ("4a", 480, 192, 96, 208, 16, 48, 64, 14),
+    ("4b", 512, 160, 112, 224, 24, 64, 64, 14),
+    ("4c", 512, 128, 128, 256, 24, 64, 64, 14),
+    ("4d", 512, 112, 144, 288, 32, 64, 64, 14),
+    ("4e", 528, 256, 160, 320, 32, 128, 128, 14),
+    ("5a", 832, 256, 160, 320, 32, 128, 128, 7),
+    ("5b", 832, 384, 192, 384, 48, 128, 128, 7),
+]
+
+
+def googlenet(batch: int = BATCH) -> LayerDAG:
+    layers: List[LayerNode] = [
+        _conv("stem7x7", 3, 64, 7, 112, batch),
+        _conv("stem1x1", 64, 64, 1, 56, batch),
+        _conv("stem3x3", 64, 192, 3, 56, batch),
+    ]
+    for (tag, cin, c1, c3r, c3, c5r, c5, cp, h) in _INCEPTION:
+        layers += [
+            _conv(f"{tag}_1x1", cin, c1, 1, h, batch),
+            _conv(f"{tag}_3red", cin, c3r, 1, h, batch),
+            _conv(f"{tag}_3x3", c3r, c3, 3, h, batch),
+            _conv(f"{tag}_5red", cin, c5r, 1, h, batch),
+            _conv(f"{tag}_5x5", c5r, c5, 5, h, batch),
+            _conv(f"{tag}_pool", cin, cp, 1, h, batch),
+        ]
+    layers.append(_fc("fc", 1024, 1000, batch))
+    return LayerDAG(layers)       # 3 + 9*6 + 1 = 58 layers (Table III)
+
+
+def resnet34(batch: int = BATCH) -> LayerDAG:
+    layers: List[LayerNode] = [_conv("stem", 3, 64, 7, 112, batch)]
+    plan = [(64, 64, 56, 6), (64, 128, 28, 8), (128, 256, 14, 12),
+            (256, 512, 7, 6)]
+    for cin, cout, h, n in plan:
+        for i in range(n):
+            c_in = cin if i == 0 else cout
+            layers.append(_conv(f"c{cout}_{i}", c_in, cout, 3, h, batch))
+    layers.append(_fc("fc", 512, 1000, batch))
+    return LayerDAG(layers)       # 1 + 32 + 1 = 34 layers
+
+
+# ---------------------------------------------------------------------------
+# DeepBench-style RNNs.  Per-timestep GEMMs; each timestep's hidden state is
+# a saved feature map.  gates: vanilla=1, GRU=3, LSTM=4.
+def _rnn(name: str, hidden: int, steps: int, gates: int,
+         batch: int = BATCH) -> LayerDAG:
+    layers = []
+    flops = 2.0 * batch * (hidden * hidden * gates * 2)   # x-GEMM + h-GEMM
+    act = batch * hidden * gates * F32
+    w = 2 * hidden * hidden * gates * F32
+    for t in range(steps):
+        layers.append(LayerNode(f"{name}_t{t}", flops_fwd=flops,
+                                saved_bytes=act,
+                                weight_bytes=w if t == 0 else 0.0, fc=True))
+    return LayerDAG(layers)
+
+
+def rnn_gemv(batch: int = BATCH) -> LayerDAG:
+    return _rnn("rnn", 2560, 50, 1, batch)        # speech recognition
+
+
+def rnn_lstm1(batch: int = BATCH) -> LayerDAG:
+    return _rnn("lstm1", 2048, 25, 4, batch)      # machine translation
+
+
+def rnn_lstm2(batch: int = BATCH) -> LayerDAG:
+    return _rnn("lstm2", 4096, 25, 4, batch)      # language modelling
+
+
+def rnn_gru(batch: int = BATCH) -> LayerDAG:
+    return _rnn("gru", 2816, 187, 3, batch)       # speech recognition
+
+
+WORKLOADS = {
+    "AlexNet": alexnet,
+    "GoogLeNet": googlenet,
+    "VGG-E": vgg_e,
+    "ResNet": resnet34,
+    "RNN-GEMV": rnn_gemv,
+    "RNN-LSTM-1": rnn_lstm1,
+    "RNN-LSTM-2": rnn_lstm2,
+    "RNN-GRU": rnn_gru,
+}
+
+CNNS = ("AlexNet", "GoogLeNet", "VGG-E", "ResNet")
+RNNS = ("RNN-GEMV", "RNN-LSTM-1", "RNN-LSTM-2", "RNN-GRU")
+
+
+# ---------------------------------------------------------------------------
+# synthetic LLM serving traffic
 @dataclasses.dataclass(frozen=True)
 class SyntheticSession:
     """One generated session: everything the router or the analytic

@@ -30,6 +30,7 @@ from repro.configs import RunConfig as JRunConfig
 from repro.configs import TrainConfig as JTrainConfig
 from repro.configs.base import CheckpointPlan as JCheckpointPlan
 from repro.configs.base import ShapeConfig as JShapeConfig
+from repro.core import dag as jdag
 from repro.core import policy as jpolicy
 from repro.core.pool import PoolAccountant as JPoolAccountant
 from repro.core.tiers import TransferHints as JHints
@@ -846,19 +847,47 @@ def test_cli_chaos_then_resume(tmp_path, monkeypatch):
     assert whole["mgr"].stats["encode_s"] and whole["mgr"].stats["write_s"]
 
 
+def _planned_every(mtbf_steps: int) -> int:
+    """The reference planner's cadence for the smoke twin at the CLI's
+    smoke shape (4 x 128), priced with the port's H100 figures and the
+    reference launcher's optimizer-state bytes."""
+    cfg = JARCHS["smollm-135m"].reduced()
+    chip = jhw.Chip(**dataclasses.asdict(hw.H100))
+    memory = JMemoryPlan(policy="mcdla", hbm_budget_gb=80.0)
+    report = jpolicy.plan_memory(
+        jdag.build_dag(cfg, JShapeConfig("train", 128, 4, "train")),
+        JMeshPlan((1,), ("data",)), memory, chip=chip,
+        model_state_bytes=cfg.param_count() * (4 + 2 * 32 // 8),
+        checkpoint=JCheckpointPlan(enabled=True, tier="host", every=0,
+                                   mtbf_steps=mtbf_steps))
+    return report.checkpoint.every
+
+
+def _saved_steps(directory) -> list:
+    return sorted(int(os.path.basename(p).split("_")[-1])
+                  for p in glob.glob(os.path.join(directory, "step_*")))
+
+
 def test_cli_refuses_planner_cadence(tmp_path):
-    with pytest.raises(SystemExit, match="A12"):
-        _cli("--steps", "2", "--ckpt-dir", str(tmp_path), "--ckpt-tier",
-             "host")
+    """``--ckpt-tier`` with ``--ckpt-every 0``: the planner's Young-Daly
+    cadence (the reference's for the same shape and chip figures), and
+    the run saves at it."""
+    every = _planned_every(1)
+    assert every == 25
+    out = _cli("--steps", "30", "--ckpt-dir", str(tmp_path), "--ckpt-tier",
+               "host", "--mtbf-steps", "1")
+    assert out["mgr"].runtime is not None
+    assert _saved_steps(tmp_path) == [25]
 
 
 def test_cli_refuses_mtbf_without_the_planner(tmp_path):
-    """``--mtbf-steps`` feeds only the planner's cadence: set, it exits
-    naming A12 instead of being ignored."""
-    with pytest.raises(SystemExit, match="A12"):
-        _cli("--steps", "2", "--ckpt-dir", str(tmp_path), "--ckpt-tier",
-             "host", "--ckpt-every", "1", "--mtbf-steps", "500")
-    assert not os.listdir(tmp_path)
+    """``--mtbf-steps`` feeds the planner's cadence: twice the MTBF here
+    doubles the planned cadence, and the run saves at the new one."""
+    every = _planned_every(2)
+    assert every == 2 * _planned_every(1) == 50
+    _cli("--steps", "52", "--ckpt-dir", str(tmp_path), "--ckpt-tier",
+         "host", "--mtbf-steps", "2")
+    assert _saved_steps(tmp_path) == [50]
 
 
 def test_default_directory_different_archs_do_not_resume(tmp_path):

@@ -497,8 +497,8 @@ def test_two_process_router_drain_over_tcp(tmp_path):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--router", "--peer", "127.0.0.1:1"], "A11b"),
-    (["--router", "--fed-listen", "0"], "A11b"),
+    (["--router", "--peer", "127.0.0.1:1", "--trace", "4"], "federation"),
+    (["--router", "--fed-listen", "0", "--trace", "4"], "federation"),
     (["--role", "decode"], "--connect"),
     (["--router", "--listen", "0"], "--batch"),
     (["--router", "--transport", "shm", "--wire-streams", "2"], "shm"),

@@ -376,8 +376,9 @@ def test_train_cli_without_cuda_raises(tmp_path):
 
 def test_unported_options_raise():
     _, tcfg = _cfgs()
-    with pytest.raises(KeyError, match="slice 5"):
-        MemoryRuntime(SINGLE, MemoryPlan(policy="auto"), device="cpu")
+    auto = MemoryRuntime(SINGLE, MemoryPlan(policy="auto"), device="cpu")
+    assert auto.offloads and auto.tier.stash_all is False
+    assert auto.tier.describe() == "pooled_hbm[bw_aware]"
     tm = build_model(RunConfig(model=tcfg,
                                shape=ShapeConfig("t", 8, 1, "train"),
                                memory=MemoryPlan(policy="none")),

@@ -388,6 +388,73 @@ def test_striped_codec_matches_single_stream(smollm):
         _closing(striped)
 
 
+class LateChannel(Channel):
+    """Shows the bytes sent to it only ``lag`` reads after they arrive, as
+    a socket polled before they have landed."""
+
+    def __init__(self, inner, lag=8):
+        self.inner, self.lag = inner, lag
+        self.reads = 0
+        self.landing = []           # (read count at arrival, bytes)
+        self.landed = bytearray()
+
+    def send(self, data: bytes) -> None:
+        self.inner.send(data)
+
+    def recv(self, n: int) -> bytes:
+        self.reads += 1
+        got = self.inner.recv(1 << 30)
+        if got:
+            self.landing.append((self.reads, got))
+        while self.landing and self.reads - self.landing[0][0] >= self.lag:
+            self.landed += self.landing.pop(0)[1]
+        out = bytes(self.landed[:n])
+        del self.landed[:n]
+        return out
+
+    def close(self) -> None:
+        self.inner.close()
+
+    @property
+    def closed(self) -> bool:
+        return self.inner.closed
+
+    @property
+    def bytes_sent(self) -> int:
+        return self.inner.bytes_sent
+
+
+def _steps(pair, prompts):
+    """The decode slots' uids after every step, and the streams."""
+    ss = [pair.submit(Request(uid=i, prompt=p, max_new_tokens=6))
+          for i, p in enumerate(prompts)]
+    steps = []
+    for _ in range(10_000):
+        pair.step()
+        steps.append(tuple(s.uid for s in pair.decode.cache.running()))
+        if not pair.has_work():
+            break
+    return steps, [s.result() for s in ss]
+
+
+@pytest.mark.parametrize("late", ["decode side", "prefill side"])
+def test_late_delivery_steps_as_the_loopback(smollm, late):
+    """Frames that land late (HANDOFFs at the decode side, ACKs and
+    RESULTs at the prefill side) still step the in-process pair as its
+    loopback twin: the same sessions in the decode slots after every
+    step, and the same streams."""
+    _, _, tm, params = smollm
+    prompts = _prompts(tm.cfg.vocab_size, 5)
+    loop = build_disagg(tm, params, batch=2, max_len=64, page_size=16,
+                        transfer="host", spill="host")
+    tx, rx = memory_pair()
+    channels = ((tx, LateChannel(rx)) if late == "decode side"
+                else (LateChannel(tx), rx))
+    wire = build_wire_pair(tm, params, batch=2, max_len=64, page_size=16,
+                           spill="host", channels=channels)
+    assert _steps(wire, prompts) == _steps(loop, prompts)
+
+
 @pytest.mark.parametrize("kw", [{}, {"streams": 3}, {"transport": "shm"}],
                          ids=["memory", "striped", "shm"])
 def test_cancel_in_transit(smollm, kw):
