@@ -298,16 +298,34 @@ Phases (each failure exits non-zero; nothing is caught and carried on):
               step, no fp8 pack), its resident estimate printed beside
               the card's peak allocation; then ``--ckpt-tier host
               --ckpt-every 0 --mtbf-steps 1``: the planned cadence (5, as
-              the CPU test pins) and snapshots at steps 5 and 10.
+              the CPU test pins) and snapshots at steps 5 and 10.  Beside
+              the peak allocation of the host-tier run and of the
+              ``auto`` run, the dry-run's estimate of one step of each
+              (``repro_torch.launch.dryrun`` on the fake card: args +
+              temp bytes), which must lie within 0.8-1.25 of it.
 
-Phases 1-3 run in this process, in order.  Phases 4-17 then run in
+18. tools   — the dry-run's roofline of phase 17's host-tier step
+              against the H100 (counted FLOPs and bytes), beside that
+              step's median over 5 measured steps: the model FLOPs'
+              share of the card's peak and the bound's share of the
+              step, each at most 1.05; ``python -m
+              repro_torch.launch.hillclimb`` over four ``train_4k``
+              variants on the fake card (no launch) and over four wire
+              variants with 64 MB of pages on the card (the int8
+              variant packs each page leaf through the int8 kernel, and
+              its wire bytes are those of the CPU's packing); the
+              deprecated ``core/offload.offload_layer`` on one full-width
+              layer through the host tier with fp8, bit for bit
+              ``MemoryRuntime.wrap_layer``.
+
+Phases 1-3 run in this process, in order.  Phases 4-18 then run in
 processes of their own (``python3 chip_smoke.py --phase KEY OUT``), up
 to three at once, each started when a slot is free and the device
 memory its runs need fits beside those running (``run_phases``); each
 one's output is printed when it ends, with its wall time, which
 includes whatever ran beside it.  The script prints its whole.  The line
 before the last is a JSON object with one entry per kernel (its launches
-summed over the counted runs of phases 3 to 17, and per run); the last
+summed over the counted runs of phases 3 to 18, and per run); the last
 line is ``{"ok": true, "device": {...}}``.
 """
 import dataclasses
@@ -831,6 +849,9 @@ PLAN_ARGS = ["auto" if a == "host" else a for a in PLAN_HOST_ARGS]
 PLAN_CKPT_ARGS = _with_steps(PLAN_ARGS, PLAN_CKPT_STEPS) + [
     "--ckpt-tier", "host", "--ckpt-every", "0", "--mtbf-steps",
     str(PLAN_MTBF)]
+# the dry-run's estimate of a step's peak (arg + temp bytes, fake card)
+# over the card's peak allocation of the whole run, for both runs
+PLAN_ESTIMATE_RATIO = (0.8, 1.25)
 
 
 def cut(arch: str, layers: int):
@@ -841,6 +862,16 @@ def cut(arch: str, layers: int):
     cfg = ARCHS[arch]
     return dataclasses.replace(cfg, num_layers=layers, encoder_layers=(
         layers if cfg.is_encoder_decoder else 0))
+
+
+def card() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    if smi.returncode != 0:
+        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    return smi.stdout.strip().splitlines()[0]
 
 
 def fail(msg: str) -> None:
@@ -4294,6 +4325,7 @@ def check_planner() -> dict:
         ms = sorted(h["ms"] for h in out["history"][1:])
         return ms[len(ms) // 2]
 
+    estimate = {policy: plan_estimate(policy) for policy in ("host", "auto")}
     free_device_memory()
     torch.cuda.reset_peak_memory_stats()
     host = train_main(PLAN_HOST_ARGS)
@@ -4318,6 +4350,23 @@ def check_planner() -> dict:
           f"resident {report.resident_bytes_per_dev / 2**30:.2f} GiB, the "
           f"card's peak allocation {peak / 2**30:.2f} GiB (host tier "
           f"{host_peak / 2**30:.2f} GiB)", flush=True)
+    for policy, got in (("host", host_peak), ("auto", peak)):
+        r = estimate[policy]
+        est = r["arg_bytes_per_dev"] + r["temp_bytes_per_dev"]
+        ratio = est / got
+        print(f"  {policy}: the dry-run's estimate (fake card) "
+              f"{est / 2**30:.2f} GiB = args "
+              f"{r['arg_bytes_per_dev'] / 2**30:.2f} + temp "
+              f"{r['temp_bytes_per_dev'] / 2**30:.2f} GiB (host side "
+              f"{r['host_bytes_per_dev'] / 2**30:.2f} GiB), the card's peak "
+              f"allocation {got / 2**30:.2f} GiB: estimate / peak "
+              f"{ratio:.3f}; the planner's resident "
+              f"{report.resident_bytes_per_dev / 2**30:.2f} GiB; traced in "
+              f"{r['compile_s']} s", flush=True)
+        if not PLAN_ESTIMATE_RATIO[0] <= ratio <= PLAN_ESTIMATE_RATIO[1]:
+            fail(f"{policy}: the dry-run's estimate {est} B is {ratio:.3f} "
+                 f"of the card's peak allocation {got} B; want "
+                 f"{PLAN_ESTIMATE_RATIO}")
     if len(losses) != PLAN_STEPS or not all(map(math.isfinite, losses)):
         fail(f"auto-policy losses not finite or missing: {losses}")
     if model.stash_groups != 0 or report.count("keep") != TRAIN_LAYERS:
@@ -4349,6 +4398,164 @@ def check_planner() -> dict:
     del out
     free_device_memory()
     return {"train_auto": launches, "train_cadence": ck_launches}
+
+
+def plan_estimate(policy: str) -> dict:
+    """The dry-run (``repro_torch.launch.dryrun`` on the fake card) of one
+    step of phase 17's run under ``policy``: full-width smollm-135m,
+    ``TRAIN_BATCH`` x ``TRAIN_SEQ``, bf16, fp8 stash codec."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.dryrun import lower_cell
+    return lower_cell("smollm-135m", ShapeConfig(
+        "train", TRAIN_SEQ, TRAIN_BATCH, "train"), policy=policy,
+        compress="fp8", device="cuda")
+
+
+# ---------------------------------------------------------------------------
+# the tools (phase 18): the roofline of phase 17's host-tier step, its
+# measured share of the card, the hill climb on the fake card, the wire
+# probe and the offload shim
+TOOLS_HILL_ARGS = ["--arch", "smollm-135m", "--shape", "train_4k",
+                   "--variants", "baseline,fp8,auto,oracle"]
+TOOLS_WIRE_ARGS = ["--wire", "--variants", "wire-baseline,wire-streams-4,"
+                   "wire-streams-4+int8,shm", "--payload-mb", "64"]
+TOOLS_WIRE_PAGES = 64                     # probe_wire's default
+SHARE_LIMIT = 1.05
+
+
+def check_roofline() -> dict:
+    """The dry-run's roofline of the host-tier step against the H100
+    beside that step's measured median (phase 17's run, 5 steps): the
+    model FLOPs' share of the card's peak and the bound's share of the
+    step; each fails over ``SHARE_LIMIT``."""
+    from repro_torch import hw
+    from repro_torch.launch.roofline import analyze_cell
+    r = plan_estimate("host")
+    a = analyze_cell(r)
+    print(f"  roofline of the host-tier step (dry-run, fake card, "
+          f"{hw.H100.name}): compute {a['compute_s'] * 1e3:.2f} ms "
+          f"({r['flops_per_dev']:.4e} FLOP), memory "
+          f"{a['memory_s'] * 1e3:.2f} ms ({r['bytes_accessed_per_dev']:.4e}"
+          f" B), collective {a['collective_s'] * 1e3:.2f} ms; dominant "
+          f"{a['dominant']}, bound {a['bound_s'] * 1e3:.2f} ms; model "
+          f"FLOPs {a['model_flops']:.4e} (ideal {a['ideal_s'] * 1e3:.2f} "
+          f"ms, {a['useful_ratio']:.3f} of the counted), roofline fraction "
+          f"{a['roofline_fraction']:.4f}; args {a['arg_gb']:.3f} GB, temp "
+          f"{a['temp_gb']:.3f} GB", flush=True)
+    for name, k in sorted(r["kernels"].items()):
+        print(f"    kernel {name}: {k['calls']} calls, {k['flops']:.4e} "
+              f"FLOP, {k['bytes']:.4e} B (fake launches)", flush=True)
+    free_device_memory()
+    out, launches = counted(lambda: train_main(PLAN_HOST_ARGS))
+    ms = sorted(h["ms"] for h in out["history"][1:])
+    step_s = ms[len(ms) // 2] / 1e3
+    del out
+    free_device_memory()
+    flops_share = a["model_flops"] / (step_s * hw.H100.peak_flops)
+    bound_share = a["bound_s"] / step_s
+    print(f"  host-tier step: median {step_s * 1e3:.1f} ms over steps "
+          f"2-{PLAN_STEPS}; model FLOPs / (step x "
+          f"{hw.H100.peak_flops:.3g}) = {flops_share:.4f}, bound / step = "
+          f"{bound_share:.4f} ({card()}); launches {launches}", flush=True)
+    if not (0 < flops_share <= SHARE_LIMIT and 0 < bound_share
+            <= SHARE_LIMIT):
+        fail(f"the roofline's shares of the measured step read "
+             f"{flops_share:.4f} and {bound_share:.4f}; a share over "
+             f"{SHARE_LIMIT} claims more than the card can do")
+    return launches
+
+
+def check_hill_climb() -> dict:
+    """``python -m repro_torch.launch.hillclimb`` over four training
+    variants on the fake card (nothing launches), then over four wire
+    variants on this host, the pages on the card (the int8 variant's
+    pages packed by the int8 kernel, its wire bytes those of the same
+    payload packed on the CPU)."""
+    from repro_torch.launch import hillclimb
+    from repro_torch.serve.transport import probe_wire
+    rows, launches = counted(lambda: hillclimb.main(TOOLS_HILL_ARGS))
+    bad = [r for r in rows if "error" in r]
+    if bad or any(launches.values()):
+        fail(f"hill climb on the fake card: errors {bad}, launches "
+             f"{launches} (want none)")
+    wire, wire_launches = counted(lambda: hillclimb.main(TOOLS_WIRE_ARGS))
+    by = {r["variant"]: r for r in wire}
+    bad = [r for r in wire if "error" in r]
+    if bad:
+        fail(f"wire probe failed: {bad}")
+    print(f"  wire probe launches {wire_launches} ({card()})", flush=True)
+    if wire_launches["int8_pack"] != 2 * TOOLS_WIRE_PAGES:
+        fail(f"int8_pack launched {wire_launches['int8_pack']} times for "
+             f"the int8 variant's {TOOLS_WIRE_PAGES} pages of 2 leaves")
+    cpu = probe_wire(payload_mb=64, device="cpu", repeats=1,
+                     **hillclimb.WIRE_VARIANTS["wire-streams-4+int8"])
+    got = by["wire-streams-4+int8"]["wire_bytes"]
+    print(f"  wire-streams-4+int8: {got:.0f} B on the wire with the pages "
+          f"packed on the card, {cpu['wire_bytes']:.0f} B packed on the "
+          "CPU", flush=True)
+    if got != cpu["wire_bytes"]:
+        fail("the int8 wire bytes packed on the card differ from the CPU's")
+    return wire_launches
+
+
+def check_offload_shim() -> dict:
+    """The deprecated ``core/offload.offload_layer`` on one full-width
+    smollm-135m layer (bf16, ``TRAIN_BATCH`` x ``TRAIN_SEQ``) through the
+    host tier with fp8, against ``MemoryRuntime.wrap_layer``: output and
+    every gradient bit for bit."""
+    import functools
+    from repro_torch import tree
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.base import MemoryPlan
+    from repro_torch.core import offload
+    from repro_torch.core.runtime import MemoryRuntime
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import ModelContext
+    from repro_torch.models.model import SINGLE_DEVICE
+    from repro_torch.parallel.sharding import ShardingPlanner
+    cfg = dataclasses.replace(ARCHS["smollm-135m"], num_layers=1)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = tree.map(lambda t: t[0], tfm.init_params(
+        gen, cfg, torch.bfloat16, dev)["groups"]["sub_0"])
+    x = torch.randn((TRAIN_BATCH, TRAIN_SEQ, cfg.d_model), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    gy = torch.randn(x.shape, generator=gen, device=dev).to(torch.bfloat16)
+    pos = torch.arange(TRAIN_SEQ, device=dev).expand(TRAIN_BATCH, -1)
+    memory = MemoryPlan(policy="host", compress="fp8")
+
+    def grads(wrap):
+        ctx = ModelContext(cfg=cfg, mode="train")
+        f = wrap(functools.partial(tfm._train_sublayer, ctx, "dense"))
+        leaves, paths = tree.flatten(params)
+        leaves = [t.detach().requires_grad_() for t in leaves]
+        xi = x.detach().requires_grad_()
+        y, _ = f(tree.unflatten(paths, leaves), xi, pos)
+        return [y.detach()] + list(torch.autograd.grad(y, [xi, *leaves],
+                                                       gy))
+
+    runtime = MemoryRuntime(SINGLE_DEVICE, memory, dev)
+    want, _ = counted(lambda: grads(runtime.wrap_layer))
+    got, launches = counted(lambda: grads(lambda f: offload.offload_layer(
+        f, ShardingPlanner(SINGLE_DEVICE), None, memory, device=dev)))
+    same = sum(same_bits(g, w) for g, w in zip(got, want))
+    print(f"  offload_layer (host + fp8, one full-width layer): output and "
+          f"{len(got) - 1} gradients, {same} of {len(got)} bit for bit "
+          f"those of MemoryRuntime.wrap_layer; launches {launches}",
+          flush=True)
+    if same != len(got):
+        fail("the offload shim differs from MemoryRuntime.wrap_layer")
+    if launches["fp8_pack"] != 1 or launches["fp8_unpack"] != 1:
+        fail(f"the shim's layer launched {launches}; want one fp8 pack and "
+             "one unpack")
+    return launches
+
+
+def check_tools() -> dict:
+    """Phase 18; returns each run's launches."""
+    return {"tools_train": check_roofline(),
+            "tools_wire": check_hill_climb(),
+            "tools_shim": check_offload_shim()}
 
 
 # ---------------------------------------------------------------------------
@@ -4638,7 +4845,7 @@ def check_ckpt_chaos():
 
 
 # ---------------------------------------------------------------------------
-# Phases 4-17 run in processes of their own, up to PARALLEL at a time:
+# Phases 4-18 run in processes of their own, up to PARALLEL at a time:
 # most serving is bound by the host, so phases share the card and its
 # cores (each comparison is bit for bit or on fixed tokens within one
 # process, so a neighbour changes no result; times printed by a phase
@@ -4657,7 +4864,7 @@ PHASE_TIMEOUT_S = 900
 
 
 def phase_table() -> list:
-    """Phases 4-17 in the order they are started: (key, title, run,
+    """Phases 4-18 in the order they are started: (key, title, run,
     device GiB).  ``run()`` returns the counted launches of the phase's
     main paths, by path name and kernel.  Phase 9, the longest, goes
     first and 11b, which needs nearly the whole card, last; the order
@@ -4722,6 +4929,11 @@ def phase_table() -> list:
                 f"{WHISPER_SEQ} over {WHISPER_FRAMES} frames, host tier, "
                 "fp8 stash)",
          lambda: {"train_whisper": check_train_whisper()}, 19),
+        ("18", f"phase 18: the tools (the dry-run's roofline of the host-tier "
+               f"step beside its time, the hill climb on the fake card and "
+               f"over the wire, the offload shim; full-width smollm-135m, "
+               f"bf16, batch {TRAIN_BATCH} x {TRAIN_SEQ})",
+         check_tools, 8),
         ("15", f"phase 15: wire transport and router (full-width "
                f"smollm-135m, bf16; comparisons at {WIRE_LAYERS} of 30 "
                f"layers, the counted two-process router at 30)", wire, 4),
@@ -4773,7 +4985,8 @@ def phase_table() -> list:
                check_disagg_serve_main_path), 2),
         ("17", f"phase 17: the KEEP / POOL / RECOMPUTE planner (full-width "
                f"smollm-135m, bf16, batch {TRAIN_BATCH} x {TRAIN_SEQ}, "
-               "--policy auto; the planned checkpoint cadence)",
+               "--policy auto; the planned checkpoint cadence; the "
+               "dry-run's estimates)",
          check_planner, 16),
         ("11b", f"phase 11b: MoE training (full-width mixtral-8x7b, bf16, "
                 f"{MIXTRAL_TRAIN_LAYERS} of 32 layers, batch {TRAIN_BATCH} "
@@ -4807,7 +5020,7 @@ def kill_group(proc) -> None:
 
 
 def run_phases(t_start: float, out_dir: str) -> dict:
-    """Phases 4-17, each in a process of its own, started in
+    """Phases 4-18, each in a process of its own, started in
     ``phase_table``'s order whenever a slot is free and the device memory
     allows (the first that fits goes next).  Prints each phase's output
     when it ends; fails as soon as one fails.  Returns the launches by
@@ -4900,14 +5113,9 @@ def main() -> None:
         print(f"== {title} (at {now - t_start:.0f} s)", flush=True)
 
     phase("phase 1: device")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    if smi.returncode != 0:
-        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
-    card = smi.stdout.strip().splitlines()[0]
+    card_line = card()
     print(f"  torch {torch.__version__} cuda {torch.version.cuda} "
-          f"python {sys.version.split()[0]} device {kind} ({card})",
+          f"python {sys.version.split()[0]} device {kind} ({card_line})",
           flush=True)
 
     phase("phase 2: build")
@@ -4951,7 +5159,7 @@ def main() -> None:
               f"({r['bound_by']})", flush=True)
     free_device_memory()
 
-    phase(f"phases 4-17: up to {PARALLEL} processes at once, within "
+    phase(f"phases 4-18: up to {PARALLEL} processes at once, within "
           f"{DEVICE_BUDGET_GIB} GiB of device memory")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_phases_") as d:
         by_path.update(run_phases(t_start, d))
@@ -4964,7 +5172,7 @@ def main() -> None:
         paths = {p: c[name] for p, c in by_path.items() if c[name]}
         rows.append(dict(name=name, launches=sum(paths.values()),
                          launches_by_path=paths, **r))
-    print(card)
+    print(card_line)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -3,8 +3,9 @@
 Wrapper of ``csrc/flash_attention.cu``, the CUDA twin of the reference's
 Pallas ``flash_attention_fwd`` (``kernels/flash_attention.py``).  A tensor
 on the CPU takes the plain version (``kernels/ref.flash_attention_ref``);
-a CUDA tensor launches the kernel or raises.  Launches are counted in
-``.launches``.  bfloat16 runs on the tensor cores (warp-level
+a CUDA tensor launches the kernel or raises; a FakeTensor on the card
+allocates the output and reports the kernel's work (``kernels/fake.py``).
+Launches are counted in ``.launches``.  bfloat16 runs on the tensor cores (warp-level
 ``mma.sync``), float32 on the CUDA cores (no TF32, which keeps about 3
 decimal digits).  The gradient pairing (forward here, backward recomputed
 through the blockwise twin) is ``kernels/ops.flash_attention``.
@@ -16,7 +17,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, fake, ref
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 #: head dims the kernel is compiled for (the configs' 32, 64, 80 and 128):
@@ -58,6 +59,11 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention_fwd: every input must be on "
                          f"{q.device}")
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    if fake.is_fake(q):
+        fake.account("flash_attention_fwd", *fake.flash_work(q, k, causal,
+                                                             window))
+        return torch.empty((B, S, H, d), dtype=q.dtype,
+                           device=q.device).transpose(1, 2)
     e = q.element_size()
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.data_ptr() % 16 or any(st * e % 16 for st, n in zip(

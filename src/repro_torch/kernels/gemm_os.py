@@ -8,7 +8,9 @@ type and written once.  bfloat16 runs on the tensor cores (``wgmma`` fed
 by TMA through a ring of stages); float32 runs FMAs on the CUDA cores (no
 TF32, which keeps about 3 decimal digits).  A tensor on the CPU takes the
 plain version (``kernels/ref.gemm_ref``); a CUDA tensor launches the kernel
-or raises.  Launches are counted in ``.launches``.
+or raises; a FakeTensor on the card allocates the output and reports the
+kernel's work (``kernels/fake.py``).  Launches are counted in
+``.launches``.
 
 The reference's contract stands: blocks the caller names are used as
 named, dims they do not divide raise.  What differs is the set of blocks:
@@ -25,7 +27,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, fake, ref
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -167,6 +169,9 @@ def gemm_os(x: torch.Tensor, w: torch.Tensor, *, bm: int = 0, bn: int = 0,
         raise ValueError(f"gemm_os: w on {w.device}, x on {x.device}")
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("gemm_os: x and w must be contiguous")
+    if fake.is_fake(x):
+        fake.account("gemm_os", *fake.gemm_work(x, w))
+        return torch.empty((M, N), dtype=x.dtype, device=x.device)
     if x.data_ptr() % 16 or w.data_ptr() % 16:
         raise ValueError("gemm_os: x and w must start on 16 bytes (the "
                          "kernel copies 16 bytes at a time)")

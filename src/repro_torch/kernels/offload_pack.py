@@ -5,7 +5,8 @@ Wrappers of ``csrc/offload_pack.cu`` (the CUDA twins of the Pallas
 ``fp8_pack`` / ``int8_pack`` / ``blocksparse_pack`` / ``fp8_unpack`` in the
 reference's ``kernels/offload_pack.py``).  A tensor on the CPU takes the
 plain version in ``kernels/ref.py``; a CUDA tensor launches the kernel or
-raises.  The three packs are one kernel family templated on the
+raises; a FakeTensor on the card allocates the outputs and reports the
+kernel's work (``kernels/fake.py``).  The three packs are one kernel family templated on the
 quantiser, launched through :func:`_pack_launch`; each pack counts its
 own launches in ``.launches``.  The unpack is one kernel for every
 payload type (``int8_unpack`` and ``blocksparse_unpack`` are
@@ -26,7 +27,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, fake, ref
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _PAYLOAD_CODE = {torch.int8: 0, torch.float8_e4m3fn: 1}
@@ -195,7 +196,9 @@ def _pack(pack: Callable, plain: Callable, x: torch.Tensor,
     q = torch.empty((R, C), dtype=_QUANT[name][1], device=x.device)
     scales = torch.empty((R // block_rows,), dtype=torch.float32,
                          device=x.device)
-    if x.numel():
+    if fake.is_fake(x):
+        fake.account(name, *fake.codec_work(x, q, scales.numel()))
+    elif x.numel():
         _pack_launch(pack, [(x, q, scales.data_ptr(), block_rows * C)])
     return q, scales
 
@@ -212,6 +215,10 @@ def _pack_leaves(pack: Callable, plain: Callable,
                          device=xs[0].device)
     qs = [torch.empty(x.shape, dtype=_QUANT[name][1], device=x.device)
           for x in xs]
+    if fake.is_fake(xs[0]):
+        for x, q in zip(xs, qs):
+            fake.account(name, *fake.codec_work(x, q, 1))
+        return list(zip(qs, scales.unbind()))
     at = scales.data_ptr()
     leaves = [(x, q, at + 4 * i, x.numel())
               for i, (x, q) in enumerate(zip(xs, qs)) if x.numel()]
@@ -304,7 +311,9 @@ def fp8_unpack(q: torch.Tensor, scales: torch.Tensor, *,
     _dtype_code(dtype, "fp8_unpack")
     q, scales = q.contiguous(), scales.contiguous()
     out = torch.empty((R, C), dtype=dtype, device=q.device)
-    if q.numel():
+    if fake.is_fake(q):
+        fake.account("fp8_unpack", *fake.codec_work(q, out, scales.numel()))
+    elif q.numel():
         _unpack_launch([(q, scales, out, block_rows * C)])
     return out
 
@@ -325,6 +334,10 @@ def unpack_leaves(qs: Sequence[torch.Tensor], scales: Sequence[torch.Tensor],
         if s.numel() != 1:
             raise ValueError(f"unpack_leaves: a leaf is one row block (one "
                              f"scale), got {s.numel()} scales")
+    if fake.is_fake(qs[0]):
+        for q, o in zip(qs, outs):
+            fake.account("fp8_unpack", *fake.codec_work(q, o, 1))
+        return
     leaves = [(q, s, o, q.numel()) for q, s, o in zip(qs, scales, outs)
               if q.numel()]
     if leaves:

@@ -8,8 +8,9 @@ pool dequantised in the K/V load.  The page map's columns are split over
 thread blocks (:func:`split_plan`); the last block of a (session, kv
 head) to finish merges the splits' partials.  A tensor on the CPU takes
 the plain version (``kernels/ref.paged_decode_attention_ref``); a CUDA
-tensor launches the kernel or raises.  Launches are counted in
-``.launches``.
+tensor launches the kernel or raises; a FakeTensor on the card allocates
+the output and reports the kernel's work (``kernels/fake.py``).
+Launches are counted in ``.launches``.
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, fake, ref
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -138,6 +139,10 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     if any(not t.is_cuda or t.device != q.device for t in tensors):
         raise ValueError("paged_decode_attention: every input must be on "
                          f"{q.device}")
+    if fake.is_fake(q):
+        fake.account("paged_decode_attention", *fake.paged_work(
+            q, k_pool, page_map, int(cache_index), int(window)))
+        return torch.empty_like(q.contiguous())
     if any(t.data_ptr() % 16 for t in (k_pool, v_pool)
            + ((kq_pool, vq_pool) if C else ())):
         raise ValueError("paged_decode_attention: pools must start on 16 "

@@ -5,8 +5,9 @@ Wrapper of ``csrc/ssd_scan.cu``, the CUDA twin of the reference's Pallas
 model runs instead (``models/ssm.ssd_chunked``): the initial state in and
 the final state out, B / C per group, dt x and dt A formed in the kernel.
 A tensor on the CPU takes the plain version (``kernels/ref.
-ssd_chunked_ref``); a CUDA tensor launches the kernel or raises.  Launches
-are counted in ``.launches``.  The gradient pairing (kernel forward,
+ssd_chunked_ref``); a CUDA tensor launches the kernel or raises; a FakeTensor on the
+card allocates the outputs and reports the kernel's work
+(``kernels/fake.py``).  Launches are counted in ``.launches``.  The gradient pairing (kernel forward,
 backward recomputed through the plain version) is ``kernels/ops.ssd``.
 """
 from __future__ import annotations
@@ -17,7 +18,7 @@ from typing import List, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, fake, ref
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_CHUNK = 128       # chunk rows the score tile holds
@@ -87,7 +88,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             raise ValueError(f"ssd_scan: {name} is not contiguous")
     if not x.is_contiguous():
         raise ValueError("ssd_scan: x is not contiguous")
-    if any(t.data_ptr() % 16 for t in (x, B, C)):
+    if not fake.is_fake(x) and any(t.data_ptr() % 16 for t in (x, B, C)):
         raise ValueError("ssd_scan: x, B and C must start on 16 bytes")
     step = 16 if x.dtype == torch.bfloat16 else 8
     if S == 0 or c == 0 or S % c or c > MAX_CHUNK or c % step:
@@ -109,6 +110,9 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     y = torch.empty((b, S, H, P), dtype=torch.float32, device=x.device)
     fin = torch.empty((b, H, P, N), dtype=x.dtype, device=x.device)
     if b == 0 or H == 0 or P == 0:
+        return y, fin
+    if fake.is_fake(x):
+        fake.account("ssd_scan", *fake.ssd_work(x, dt, B, init_state, c))
         return y, fin
     fn = build.function("ssd_scan", "ssd_scan_fwd", _ARGS)
     rc = fn(_DTYPE_CODE[x.dtype], x.data_ptr(), dt.data_ptr(), A.data_ptr(),

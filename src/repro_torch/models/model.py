@@ -25,9 +25,13 @@ AUX_WEIGHT = 0.01
 
 
 def resolve_device(device) -> torch.device:
-    """``device`` as a torch.device; asking for CUDA without it raises."""
+    """``device`` as a torch.device; asking for CUDA without it raises,
+    unless a ``FakeTensorMode`` is in force (the dry-run's fake card,
+    ``launch/dryrun.py``: nothing is allocated or launched)."""
     device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
+    if device.type == "cuda" and not torch.cuda.is_available() and \
+            torch._C._get_dispatch_mode(
+                torch._C._TorchDispatchModeKey.FAKE) is None:
         raise RuntimeError("device 'cuda' requested but CUDA is not "
                            "available (pass device='cpu' to run on the CPU)")
     return device

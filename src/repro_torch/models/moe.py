@@ -98,12 +98,14 @@ def route(x2d: torch.Tensor, router: torch.Tensor, top_k: int, cap: int,
     # rank within each expert's group
     first = torch.searchsorted(e_sorted, e_sorted, side="left")
     rank = torch.arange(n, device=dev) - first
-    keep = rank < cap                                           # overflow drops
-    at = (e_sorted[keep], rank[keep])
-    gather_idx = torch.full((num_experts, cap), T, dtype=torch.long,
-                            device=dev).index_put(at, t_sorted[keep])
-    combine_w = torch.zeros((num_experts, cap), dtype=torch.float32,
-                            device=dev).index_put(at, w_sorted[keep])
+    # an overflow drops into a scratch column past the capacity, cut off
+    # after: static shapes (no boolean mask: no sync with the card, and
+    # the dry-run's fake tensors trace it)
+    at = (e_sorted, torch.clamp(rank, max=cap))
+    gather_idx = torch.full((num_experts, cap + 1), T, dtype=torch.long,
+                            device=dev).index_put(at, t_sorted)[:, :cap]
+    combine_w = torch.zeros((num_experts, cap + 1), dtype=torch.float32,
+                            device=dev).index_put(at, w_sorted)[:, :cap]
     return gather_idx, combine_w, probs
 
 

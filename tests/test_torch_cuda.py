@@ -655,3 +655,63 @@ def test_zamba2_engine_kernels_match_plain(dev):
     assert report["slots"]["parks"] > 0
     assert report["decode_io"]["compressed_adopts"] > 0
     assert ssd_scan.launches - before == 4 * len(reqs)   # 4 blocks each
+
+
+def _each_kernel(dev):
+    """One call of every kernel wrapper on inputs made on ``dev``."""
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.gemm_os import gemm_os
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def e(*shape, dtype=bf):
+        return torch.ones(shape, dtype=dtype, device=dev)
+
+    x = e(256, 64)
+    q, s = offload_pack.int8_pack(x, block_rows=128)
+    offload_pack.fp8_pack(x, block_rows=128)
+    offload_pack.blocksparse_pack(x, block_rows=128)
+    offload_pack.fp8_unpack(q, s, block_rows=128)
+    flash_attention_fwd(e(2, 4, 64, 64), e(2, 2, 64, 64), e(2, 2, 64, 64))
+    ssd_scan(e(1, 64, 4, 32), e(1, 64, 4, dtype=f32), -e(4, dtype=f32),
+             e(1, 64, 1, 16), e(1, 64, 1, 16), 32)
+    paged_decode_attention(e(2, 1, 4, 64), e(9, 16, 2, 64), e(9, 16, 2, 64),
+                           torch.zeros((2, 4), dtype=torch.int32,
+                                       device=dev), 40)
+    gemm_os(e(128, 64), e(64, 128))
+
+
+def test_real_cuda_tensors_launch_under_the_dry_runs_tracker(dev):
+    """The kernels' fake path is the FakeTensors' only: under the dry-run's
+    tracker a real CUDA tensor launches its kernel (counted, nothing
+    reported as fake work); FakeTensors on the card launch nothing and
+    report every kernel once."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.gemm_os import gemm_os
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.launch.dryrun import StepTracker
+    kernels = {"int8_pack": offload_pack.int8_pack,
+               "fp8_pack": offload_pack.fp8_pack,
+               "blocksparse_pack": offload_pack.blocksparse_pack,
+               "fp8_unpack": offload_pack.fp8_unpack,
+               "flash_attention_fwd": flash_attention_fwd,
+               "ssd_scan": ssd_scan,
+               "paged_decode_attention": paged_decode_attention,
+               "gemm_os": gemm_os}
+    before = {n: f.launches for n, f in kernels.items()}
+    real = StepTracker("cuda")
+    with real:
+        _each_kernel(dev)
+    torch.cuda.synchronize()
+    assert {n: f.launches - before[n] for n, f in kernels.items()} == \
+        dict.fromkeys(kernels, 1)
+    assert real.kernels == {}
+    with FakeTensorMode():
+        fake = StepTracker("cuda")
+        with fake:
+            _each_kernel(dev)
+    assert {n: f.launches - before[n] for n, f in kernels.items()} == \
+        dict.fromkeys(kernels, 1)
+    assert {n: k["calls"] for n, k in fake.kernels.items()} == \
+        dict.fromkeys(kernels, 1)
