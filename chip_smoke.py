@@ -318,14 +318,37 @@ Phases (each failure exits non-zero; nothing is caught and carried on):
               layer through the host tier with fp8, bit for bit
               ``MemoryRuntime.wrap_layer``.
 
-Phases 1-3 run in this process, in order.  Phases 4-18 then run in
+19. mesh    — training on a device mesh (ROADMAP A8): four rank
+              processes on the one card (NCCL refuses two ranks on one
+              device, so gloo, which stages every collective's CUDA
+              tensors through pinned host memory) form a (2, 2) ("data",
+              "model") mesh and train full-width smollm-135m cut to 8 of
+              its 30 layers through ``repro_torch.launch.train`` under
+              torchrun's variables: 3 steps of 8 x 1024 tokens with
+              ``--policy mcdla --placement bw_aware --compress fp8``, then
+              one with ``local``, each rank holding the shards of the
+              state its specs name and its rows of every batch.  (a) One
+              step's loss and every gradient leaf, gathered whole, against
+              one process's on the card from the same weights and batch,
+              in float32 (``MESH_F32_TOL``) and in bfloat16 (held to the
+              one process's bf16 vs f32 distance); (b) every state leaf in
+              its shard's shape, the resident bytes a rank against one
+              process; (c) each rank's pooled stash exactly a quarter of
+              one process's, the fetch equal to the stash; (d) a rank's
+              launches a step: fp8 pack and unpack 8, the flash forward
+              16; (e) ``ring_all_reduce`` over the four ranks bit for bit
+              the ranks' sum in the ring's order, and
+              ``compressed_all_reduce`` within rel 0.02 of the mean.  No
+              time here is a figure for the pool over NVLink.
+
+Phases 1-3 run in this process, in order.  Phases 4-19 then run in
 processes of their own (``python3 chip_smoke.py --phase KEY OUT``), up
 to three at once, each started when a slot is free and the device
 memory its runs need fits beside those running (``run_phases``); each
 one's output is printed when it ends, with its wall time, which
 includes whatever ran beside it.  The script prints its whole.  The line
 before the last is a JSON object with one entry per kernel (its launches
-summed over the counted runs of phases 3 to 18, and per run); the last
+summed over the counted runs of phases 3 to 19, and per run); the last
 line is ``{"ok": true, "device": {...}}``.
 """
 import dataclasses
@@ -335,6 +358,7 @@ import math
 import os
 import shutil
 import signal
+import socket
 import subprocess
 import sys
 import tempfile
@@ -4845,7 +4869,295 @@ def check_ckpt_chaos():
 
 
 # ---------------------------------------------------------------------------
-# Phases 4-18 run in processes of their own, up to PARALLEL at a time:
+# Phase 19: training on a device mesh.  NCCL refuses two ranks on one
+# device, so the four ranks of a (2, 2) ("data", "model") mesh share the
+# card over gloo, which stages every collective's CUDA tensors through
+# pinned host memory: the step's time is no figure for a pool over NVLink.
+MESH_RANKS, MESH_LAYERS, MESH_STEPS = 4, 8, 3
+MESH_ARGS = ["--arch", "smollm", "--device", "cuda", "--seed", "0",
+             "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+             "--steps", str(MESH_STEPS), "--lr", "3e-4", "--policy", "mcdla",
+             "--placement", "bw_aware", "--compress", "fp8",
+             "--dist-backend", "gloo", "--log-every", "1"]
+MESH_LOCAL_ARGS = _with_steps(["local" if a == "bw_aware" else a
+                               for a in MESH_ARGS], 1)
+# a rank's launches a step: each of the 8 layers' input packed once and
+# unpacked once, the flash forward in forward and recompute
+MESH_PER_STEP = {"fp8_pack": MESH_LAYERS, "fp8_unpack": MESH_LAYERS,
+                 "flash_attention_fwd": 2 * MESH_LAYERS}
+# (a) in float32, the sharded step against one process, stated before
+# the first card reading.  On the CPU (tests/test_torch_mesh.py, 2
+# layers of width 128) the loss agreed to ~1e-7 and the worst gradient
+# leaf to 6.5e-7 of its scale.  On the card a data rank's matmuls have
+# half the rows (cuBLAS may pick other kernels) and the data ranks'
+# gradients are summed after, so the roundings differ as on the CPU;
+# but 8 x 4.7M stashed elements go through fp8, and an element whose
+# input moved by a rounding can cross an e4m3 midpoint (2^-4 of that
+# element) on one side only.  Limits: step 1's loss (identical weights)
+# 1e-4, steps 2-3 phase 5's 1e-3, the worst step-1 leaf 1e-2 of its
+# scale (a missed reduce or a shard in the wrong place reads O(1)).
+MESH_F32_TOL = {"loss1": 1e-4, "loss": TRAIN_LOSS_ATOL, "leaf": 1e-2}
+MESH_RANK_S = 600
+# the ranks' collective check: (4 x 2048, 576) float32 a rank
+MESH_RING_SHAPE = (MESH_RANKS * 2048, 576)
+
+
+def mesh_steps(dtype: str, sharded: bool, n: int = MESH_STEPS):
+    """``n`` steps of phase 19's run (``MESH_ARGS`` at ``MESH_LAYERS``
+    layers, the weights in ``dtype``) from its weights and batches, on
+    this rank's mesh (``sharded``) or in this process alone; returns
+    ((losses, step 1's gradients, whole, in host memory), step 1's
+    memory traffic)."""
+    from repro_torch import tree
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import train as train_cli
+    from repro_torch.parallel.sharding import PartitionSpec, constrain
+    from repro_torch.train.loop import grads_of
+    from repro_torch.train.optimizer import apply_adamw
+    from repro_torch.train.train_state import init_state
+    mesh = mesh_mod.make_host_mesh(MESH_RANKS) if sharded else None
+    model, tc, source = train_cli.build_run(
+        train_cli.parse_args(MESH_ARGS), dtype=dtype,
+        cfg=cut("smollm-135m", MESH_LAYERS), mesh=mesh,
+        plan=mesh_mod.host_plan(MESH_RANKS) if sharded else None)
+    specs = model.param_specs() if sharded else None
+    state = init_state(model, tc)
+    losses, first, traffic = [], None, None
+    for t in range(n):
+        batch = to_device(source.batch_at(t), model.device)
+        model.runtime.reset_traffic()
+        g, _, m = grads_of(model, tc, state["params"], batch)
+        if t == 0:
+            traffic = model.runtime.traffic_report()
+            first = tree.map(lambda x: x.detach().cpu(), g) if not sharded \
+                else tree.map(lambda x, sp: constrain(
+                    x, model.mesh, PartitionSpec(), src=sp).cpu(), g, specs)
+        _, state["opt"], _ = apply_adamw(state["params"], g, state["opt"],
+                                         tc, mesh=model.mesh, specs=specs)
+        losses.append(float(m["loss"]))
+        del g, batch
+    del model, state
+    free_device_memory()
+    return (losses, first), traffic
+
+
+def state_bytes(state) -> int:
+    """Bytes of a state's parameters and moments."""
+    from repro_torch import tree
+    return sum(t.numel() * t.element_size()
+               for t in tree.leaves({"p": state["params"], "o": state["opt"]}))
+
+
+def run_mesh_rank(out: str) -> None:
+    """One rank of phase 19 (``python3 chip_smoke.py --mesh-rank OUT``,
+    ``torchrun``'s variables in the environment): the counted main path
+    through ``repro_torch.launch.train``, the shards, the equality runs
+    (rank 0 also runs the one-process steps) and the collectives; its
+    findings go to ``OUT/rank<r>.json``, failures exit non-zero."""
+    from repro_torch import tree
+    from repro_torch.launch import train as train_cli
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel.sharding import local_shape
+    from repro_torch.train.train_state import state_specs, state_template
+    import torch.distributed as dist
+    rank = int(os.environ["RANK"])
+    cfg = cut("smollm-135m", MESH_LAYERS)
+    res = {"rank": rank}
+
+    # (d) the main path through the command line, counted: 3 steps
+    # bw_aware, then 1 step local
+    run, launches = counted(lambda: train_cli.main(MESH_ARGS, cfg=cfg))
+    model, tc = run["model"], run["tc"]
+    hist = run["history"]
+    losses = [h["loss"] for h in hist]
+    if len(losses) != MESH_STEPS or not all(map(math.isfinite, losses)):
+        fail(f"rank {rank}: mesh losses not finite or missing: {losses}")
+    for name, n in MESH_PER_STEP.items():
+        if launches[name] != n * MESH_STEPS:
+            fail(f"rank {rank}: {name} launched {launches[name]} times in "
+                 f"{MESH_STEPS} steps; want {n} a step")
+    report = model.runtime.traffic_report()
+    res.update(launches=launches, losses=losses,
+               step_ms=[h["ms"] for h in hist],
+               stash=report["stash"], fetch=report["fetch"])
+    if report["stash"]["raw_bytes"] != report["fetch"]["raw_bytes"]:
+        fail(f"rank {rank}: stash {report['stash']} != fetch "
+             f"{report['fetch']}")
+    # (b) every state leaf this rank's shard, in its local shape
+    specs = state_specs(model, tc)
+    glob = state_template(model, tc)
+    bad = [p for (t, p), g, sp in zip(zip(*tree.flatten(run["state"])),
+                                      tree.leaves(glob), tree.leaves(specs))
+           if tuple(t.shape) != local_shape(g.shape, sp, model.mesh)]
+    if bad:
+        fail(f"rank {rank}: state leaves not in their shard's shape: {bad}")
+    res["state_bytes"] = state_bytes(run["state"])
+    res["one_process_state_bytes"] = state_bytes(glob)
+    del run, model
+    free_device_memory()
+    local, local_launches = counted(
+        lambda: train_cli.main(MESH_LOCAL_ARGS, cfg=cfg))
+    for name, n in MESH_PER_STEP.items():
+        if local_launches[name] != n:
+            fail(f"rank {rank}: local placement: {name} launched "
+                 f"{local_launches[name]} times in 1 step; want {n}")
+    res.update(local_launches=local_launches,
+               local_losses=[h["loss"] for h in local["history"]],
+               local_stash=local["model"].runtime.traffic_report()["stash"])
+    del local
+    free_device_memory()
+    res["peak_gib"] = torch.cuda.max_memory_reserved() / 2 ** 30
+
+    # (a) the sharded step against one process, float32 and bfloat16
+    f32, _ = mesh_steps("float32", True)
+    bf16, traffic = mesh_steps("bfloat16", True)
+    res["step1_stash"] = traffic["stash"]
+    if rank == 0:
+        one32, _ = mesh_steps("float32", False)
+        one16, one_traffic = mesh_steps("bfloat16", False)
+        res["one_process_step1_stash"] = one_traffic["stash"]
+        gap32 = train_gap(f32, one32, "mesh vs one process, float32")
+        rounding = train_gap(one16, one32,
+                             "one process, bfloat16 vs float32")
+        gap16 = train_gap(bf16, one16, "mesh vs one process, bfloat16")
+        res.update(gap32=gap32, rounding=rounding, gap16=gap16)
+        print(f"    limits: float32 {MESH_F32_TOL}; bfloat16 step-1 loss "
+              f"<= {rounding['loss1']:.3g} and all leaves <= "
+              f"{rounding['norm']:.3g} (one process, bf16 vs f32)",
+              flush=True)
+        if any(gap32[k] > tol for k, tol in MESH_F32_TOL.items()):
+            fail("the sharded step (float32) disagrees with one process")
+        if gap16["loss1"] > rounding["loss1"] or \
+                gap16["norm"] > rounding["norm"]:
+            fail("the sharded step (bfloat16) lies further from one process "
+                 "than bfloat16 rounding moves it")
+    del f32, bf16
+
+    # (e) the collectives on the card's tensors, staged through the host
+    xs = [torch.randn(MESH_RING_SHAPE, generator=torch.Generator()
+                      .manual_seed(100 + r)).cuda() for r in range(MESH_RANKS)]
+    dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ring = coll.ring_all_reduce(xs[rank])
+    torch.cuda.synchronize()
+    res["ring_ms"] = (time.perf_counter() - t0) * 1e3
+    n = MESH_RANKS
+    parts = []
+    for c in range(n):                 # chunk c: from rank c round the ring
+        acc = xs[c].chunk(n)[c]
+        for k in range(1, n):
+            acc = xs[(c + k) % n].chunk(n)[c] + acc
+        parts.append(acc)
+    res["ring_bit_exact"] = bool(torch.equal(ring, torch.cat(parts)))
+    mean, _ = coll.compressed_all_reduce(xs[rank], torch.zeros_like(xs[rank]))
+    exact = torch.stack(xs).mean(0)
+    res["compressed_rel"] = float((mean - exact).norm() / exact.norm())
+    res["staged"] = coll.stages_through_host()
+    res["backend"] = dist.get_backend()
+    if not res["ring_bit_exact"]:
+        fail(f"rank {rank}: ring_all_reduce differs from the ranks' sum in "
+             "the ring's order")
+    if res["compressed_rel"] >= 0.02:
+        fail(f"rank {rank}: compressed_all_reduce rel "
+             f"{res['compressed_rel']:.4f} >= 0.02")
+    dist.barrier()
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.destroy_process_group()
+
+
+def check_mesh_train() -> dict:
+    """Phase 19: four rank processes (``run_mesh_rank``) on the card over
+    gloo; their findings held together: (b) each rank's resident state
+    against one process's, (c) each rank's pooled stash bytes exactly a
+    quarter of one process's, the fetch equal to the stash, (d) the
+    launches a rank a step, (e) the collectives.  Returns the counted
+    launches, summed over the ranks."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as out:
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        procs, logs = [], []
+        for r in range(MESH_RANKS):
+            env = dict(os.environ, RANK=str(r), LOCAL_RANK=str(r),
+                       WORLD_SIZE=str(MESH_RANKS),
+                       LOCAL_WORLD_SIZE=str(MESH_RANKS),
+                       MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                       OMP_NUM_THREADS="2")
+            logs.append(open(os.path.join(out, f"rank{r}.log"), "w"))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--mesh-rank",
+                 out], env=env, stdout=logs[-1], stderr=subprocess.STDOUT))
+        t0 = time.perf_counter()
+        try:
+            while any(p.poll() is None for p in procs):
+                if any(p.poll() not in (None, 0) for p in procs) or \
+                        time.perf_counter() - t0 > MESH_RANK_S:
+                    break
+                time.sleep(0.5)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+            for f in logs:
+                f.close()
+        wall = time.perf_counter() - t0
+        with open(os.path.join(out, "rank0.log")) as f:
+            print(f.read(), end="", flush=True)
+        rcs = [p.returncode for p in procs]
+        if rcs != [0] * MESH_RANKS:
+            for r in range(1, MESH_RANKS):
+                with open(os.path.join(out, f"rank{r}.log")) as f:
+                    print(f"  -- rank {r} (exit {rcs[r]}):\n{f.read()[-3000:]}")
+            fail(f"a mesh rank failed: exit codes {rcs} after {wall:.0f} s")
+        ranks = []
+        for r in range(MESH_RANKS):
+            with open(os.path.join(out, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    r0 = ranks[0]
+    print(f"  backend {r0['backend']}: the card's tensors staged through "
+          f"pinned host memory: {r0['staged']}; 4 ranks on one card, so "
+          "no step time here is a figure for the pool over NVLink",
+          flush=True)
+    one_stash = r0["one_process_step1_stash"]["raw_bytes"]
+    for r in ranks:
+        ms = sorted(r["step_ms"][1:])
+        print(f"  rank {r['rank']}: losses {[round(x, 4) for x in r['losses']]}"
+              f", step {ms[len(ms) // 2]:.1f} ms (first "
+              f"{r['step_ms'][0]:.1f}); state (params + moments) "
+              f"{r['state_bytes']} B against {r['one_process_state_bytes']} "
+              f"B in one process; pooled stash a step "
+              f"{r['step1_stash']['raw_bytes']:.0f} B raw against "
+              f"{one_stash:.0f} B in one process; launches a step "
+              f"{ {k: r['launches'][k] // MESH_STEPS for k in MESH_PER_STEP} }"
+              f"; ring {r['ring_ms']:.1f} ms, compressed rel "
+              f"{r['compressed_rel']:.4f}; peak "
+              f"{r['peak_gib']:.2f} GiB reserved", flush=True)
+        if r["step1_stash"]["raw_bytes"] * MESH_RANKS != one_stash:
+            fail(f"rank {r['rank']}: pooled stash {r['step1_stash']} is not "
+                 f"a quarter of one process's {one_stash} B")
+        for key in ("stash", "local_stash"):
+            steps = MESH_STEPS if key == "stash" else 1
+            if r[key]["raw_bytes"] * MESH_RANKS != one_stash * steps:
+                fail(f"rank {r['rank']}: the command line's {key} "
+                     f"{r[key]} is not a quarter of one process's")
+        if r["state_bytes"] >= r0["one_process_state_bytes"]:
+            fail(f"rank {r['rank']} holds the whole state")
+    print(f"  the four ranks' peak reserved memory: "
+          f"{sum(r['peak_gib'] for r in ranks):.2f} GiB (and a CUDA "
+          "context each)", flush=True)
+    names = kernel_counters()
+    return {"train_mesh": {k: sum(r["launches"][k] for r in ranks)
+                           for k in names},
+            "train_mesh_local": {k: sum(r["local_launches"][k]
+                                        for r in ranks) for k in names}}
+
+
+# ---------------------------------------------------------------------------
+# Phases 4-19 run in processes of their own, up to PARALLEL at a time:
 # most serving is bound by the host, so phases share the card and its
 # cores (each comparison is bit for bit or on fixed tokens within one
 # process, so a neighbour changes no result; times printed by a phase
@@ -4864,7 +5176,7 @@ PHASE_TIMEOUT_S = 900
 
 
 def phase_table() -> list:
-    """Phases 4-18 in the order they are started: (key, title, run,
+    """Phases 4-19 in the order they are started: (key, title, run,
     device GiB).  ``run()`` returns the counted launches of the phase's
     main paths, by path name and kernel.  Phase 9, the longest, goes
     first and 11b, which needs nearly the whole card, last; the order
@@ -4912,6 +5224,12 @@ def phase_table() -> list:
         ("9", f"phase 9: training main path (full-width zamba2-2.7b, bf16, "
               f"batch {TRAIN_BATCH} x {TRAIN_SEQ}, host tier, fp8 stash)",
          lambda: {"train_zamba2": check_train_zamba2()}, 50),
+        ("19", f"phase 19: training on a device mesh (full-width "
+               f"smollm-135m at {MESH_LAYERS} of 30 layers, bf16 and float32, "
+               f"{MESH_RANKS} ranks on one card over gloo in a (2, 2) "
+               f"('data', 'model') mesh, batch {TRAIN_BATCH} x {TRAIN_SEQ}, "
+               "mcdla pool bw_aware then local, fp8 stash)",
+         check_mesh_train, 14),
         ("12c", f"phase 12c: encoder-decoder serving (full-width "
                 f"whisper-medium, bf16, int8 spill, parked cross caches; "
                 f"comparison and counted runs at {WHISPER_SERVE_CMP_LAYERS} "
@@ -5020,7 +5338,7 @@ def kill_group(proc) -> None:
 
 
 def run_phases(t_start: float, out_dir: str) -> dict:
-    """Phases 4-18, each in a process of its own, started in
+    """Phases 4-19, each in a process of its own, started in
     ``phase_table``'s order whenever a slot is free and the device memory
     allows (the first that fits goes next).  Prints each phase's output
     when it ends; fails as soon as one fails.  Returns the launches by
@@ -5085,6 +5403,11 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     if sys.argv[1:2] == ["--wire-phase"]:     # check_wire_phase's child
         torch.save(check_wire_transports(sys.argv[2]), sys.argv[3])
+        return
+    if sys.argv[1:2] == ["--mesh-rank"]:      # check_mesh_train's child
+        import ctypes                         # die with the phase
+        ctypes.CDLL(None).prctl(1, signal.SIGKILL)    # PR_SET_PDEATHSIG
+        run_mesh_rank(sys.argv[2])
         return
     if sys.argv[1:2] == ["--phase"]:          # run_phases' child
         import ctypes                         # die with the script
@@ -5159,7 +5482,7 @@ def main() -> None:
               f"({r['bound_by']})", flush=True)
     free_device_memory()
 
-    phase(f"phases 4-18: up to {PARALLEL} processes at once, within "
+    phase(f"phases 4-19: up to {PARALLEL} processes at once, within "
           f"{DEVICE_BUDGET_GIB} GiB of device memory")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_phases_") as d:
         by_path.update(run_phases(t_start, d))

@@ -14,7 +14,7 @@ frames in place.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -78,14 +78,27 @@ _register_builtin_codecs()
 # ---------------------------------------------------------------------------
 # whole-tensor encode/decode through a codec: its kernels run on the
 # flattened 2D view as ONE row block, so the scale is per tensor
-def encode_tensor(codec: Codec, x: torch.Tensor
+def encode_tensor(codec: Codec, x: torch.Tensor,
+                  absmax: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Quantize ``x`` (any shape) with one per-tensor scale.
 
     Returns ``(q, scale)`` with ``q.shape == x.shape`` and a 0-d scale.
-    """
+    ``absmax`` (a 0-d tensor at least ``x``'s own, exact in ``x``'s dtype)
+    sets the scale instead: ``x`` is then one block of a larger tensor
+    whose absmax it is (a rank's shard of a stash), and its codes are
+    those of its elements in the whole tensor's encoding.  The pack kernel
+    takes its scale from the row block it packs, so that block opens with
+    a carrier row holding ``absmax``, whose codes are dropped."""
     x2 = x.reshape(-1, x.shape[-1])
+    if absmax is not None:
+        carrier = torch.zeros((1, x2.shape[1]), dtype=x2.dtype,
+                              device=x2.device)
+        carrier[0, 0] = absmax
+        x2 = torch.cat([carrier, x2])
     q2, scales = codec.pack(x2, block_rows=x2.shape[0])
+    if absmax is not None:
+        q2 = q2[1:]
     return q2.reshape(x.shape), scales[0]
 
 

@@ -10,7 +10,7 @@ call ``wrap_layer`` on it.
 ``planner`` is a :class:`~repro_torch.parallel.sharding.ShardingPlanner`
 and ``mesh`` a ``DeviceMesh`` or ``None``.  The port runs on one device:
 ``compute_spec`` and ``batch_dim`` are accepted and not used (the sharded
-placement of a fetch is ROADMAP A8's).  ``device`` names the device a
+placement of a fetch: ROADMAP A8b).  ``device`` names the device a
 fetch lands on (the card unless the caller asks for the CPU).
 """
 from __future__ import annotations

@@ -22,6 +22,15 @@ KEEP / POOL / RECOMPUTE plan evicts.
 Unlike the reference, which meters per *trace* (one stash and one fetch
 per wrapped kind under ``scan`` + ``jit``), the port runs eagerly and
 meters every executed call.
+
+On a mesh (``mesh``, a DeviceMesh over the plan's axes) the runtime sees
+each rank's local shards: a layer input is this data rank's rows
+(replicated over ``"model"``: :meth:`MemoryRuntime.residual_spec`), the
+tier keeps this rank's part of it and the meter counts what one rank
+holds.  ``wrap_layer(..., specs=...)`` takes parameter *shards*: they
+are all-gathered right before use, in forward and again in the
+recompute, and the recomputed full gradients reduced back to the shards
+(``parallel/sharding.py``), FSDP style.
 """
 from __future__ import annotations
 
@@ -34,8 +43,9 @@ from repro_torch import hw, tree
 from repro_torch.configs.base import MemoryPlan, MeshPlan
 from repro_torch.core import policy as policy_mod
 from repro_torch.core.dag import LayerDAG, build_dag
-from repro_torch.core.tiers import (MemoryTier, SpillPayload, SpillTier,
-                                    TransferHints, build_tier)
+from repro_torch.core.tiers import (MemoryTier, PoolSlice, SpillPayload,
+                                    SpillTier, TransferHints, build_tier)
+from repro_torch.parallel import sharding
 
 # big float aux (e.g. encoder states feeding cross-attention) stash too
 AUX_STASH_NDIM = 3
@@ -56,19 +66,31 @@ class TierTraffic:
 
 
 class MemoryRuntime:
-    """Facade: tier + per-call accounting for one device."""
+    """Facade: tier + per-call accounting for one device (one rank of
+    ``mesh``)."""
 
     def __init__(self, plan: MeshPlan, memory: MemoryPlan,
                  device: torch.device = "cuda",
                  chip: hw.Chip = hw.H100,
-                 tier: Optional[MemoryTier] = None):
+                 tier: Optional[MemoryTier] = None, mesh=None):
         self.plan = plan
         self.memory = memory
         self.device = torch.device(device)
         self.chip = chip
+        self.mesh = sharding.mesh_groups(mesh)
+        self.planner = sharding.ShardingPlanner(plan)
         self.tier: MemoryTier = tier if tier is not None \
-            else build_tier(memory, plan, self.device)
+            else build_tier(memory, plan, self.device, self.mesh)
         self._traffic: Dict[str, TierTraffic] = {}
+
+    def residual_spec(self) -> Optional[sharding.PartitionSpec]:
+        """The layout of a local layer input on the mesh: the batch dim
+        over the batch axes, replicated over ``"model"`` (the
+        reference's sequence-parallel residual is ROADMAP A8b's); None
+        off a mesh."""
+        if self.mesh is None:
+            return None
+        return sharding.PartitionSpec(self.planner.axes.batch)
 
     @property
     def offloads(self) -> bool:
@@ -78,8 +100,9 @@ class MemoryRuntime:
     # ------------------------------------------------------------------
     def _meter(self, direction: str, x: torch.Tensor,
                hints: Optional[TransferHints] = None) -> None:
-        raw = float(x.numel()) * x.element_size()
-        wire = raw * self.tier.wire_ratio(x, hints or TransferHints())
+        hints = hints or TransferHints()
+        raw = float(x.numel()) * x.element_size() * self.tier.held(x, hints)
+        wire = raw * self.tier.wire_ratio(x, hints)
         self._traffic.setdefault(direction, TierTraffic()).add(raw, wire)
 
     def meter_transfer(self, direction: str, raw_bytes: float,
@@ -227,8 +250,28 @@ class MemoryRuntime:
 
     # ------------------------------------------------------------------
     # the one training wrapper
-    def wrap_layer(self, layer_fn: Callable, name: str = "layer"
-                   ) -> Callable:
+    def gathered(self, layer_fn: Callable, specs=None) -> Callable:
+        """``layer_fn`` on the whole parameters of the shards it is given
+        (``specs`` their specs: gathered under autograd, the gradient
+        reduced back to the shards); ``layer_fn`` itself off a mesh or
+        without specs."""
+        if self.mesh is None or specs is None:
+            return layer_fn
+        runtime = self
+
+        def run(params, x, *aux):
+            return layer_fn(runtime.gather(params, specs), x, *aux)
+
+        return run
+
+    def gather(self, params, specs):
+        """The whole tensors of parameter shards (``specs`` their specs)
+        under autograd (``parallel/sharding.gather_params``)."""
+        return sharding.gather_params(params, specs, self.mesh,
+                                      self.planner.axes.batch)
+
+    def wrap_layer(self, layer_fn: Callable, name: str = "layer",
+                   specs=None) -> Callable:
         """Wrap ``layer_fn(params, x, *aux) -> y`` (``y`` a tensor or a
         tuple of tensors) so the saved-for-backward copy of ``x`` lives in
         this runtime's tier.
@@ -237,20 +280,27 @@ class MemoryRuntime:
         reference; float aux with ndim >= 3 are stashed too, uncompressed
         (they must round-trip bit-exactly).  When no input needs a gradient
         the layer runs bare: no stash, no payload left behind (JAX's primal
-        path).  Returns ``layer_fn`` itself when the tier does not offload.
+        path).  On a mesh with ``specs`` (the parameters' specs) the
+        parameters are shards, gathered in forward and in the recompute,
+        their gradients reduced back to the shards.  When the tier does
+        not offload the layer runs on the gathered parameters
+        (:meth:`gathered`: ``layer_fn`` itself off a mesh).
         """
         if not self.offloads:
-            return layer_fn
+            return self.gathered(layer_fn, specs)
         runtime = self
+        if self.mesh is None:
+            specs = None
 
         def wrapped(params, x, *aux):
             leaves, paths = tree.flatten(params)
             if not torch.is_grad_enabled() or not any(
                     t.requires_grad for t in [x, *leaves, *aux]
                     if isinstance(t, torch.Tensor)):
-                return layer_fn(params, x, *aux)
+                return runtime.gathered(layer_fn, specs)(params, x, *aux)
             spec = _WrapSpec(runtime, layer_fn, name, paths, len(leaves),
-                             aux)
+                             aux, None if specs is None else
+                             tree.leaves(specs))
             outs = _StashedLayer.apply(spec, x, *leaves,
                                        *[a for a in aux
                                          if isinstance(a, torch.Tensor)])
@@ -264,9 +314,11 @@ class _WrapSpec:
     the runtime, the layer, the parameter paths and which aux to stash."""
 
     def __init__(self, runtime: MemoryRuntime, layer_fn: Callable, name: str,
-                 paths, n_params: int, aux):
+                 paths, n_params: int, aux, specs=None):
         self.runtime, self.layer_fn, self.name = runtime, layer_fn, name
         self.paths, self.n_params = paths, n_params
+        # the parameters' specs, leaf by leaf, when they are shards
+        self.specs = specs
         # aux entries that are tensors travel through apply(); the others
         # are rebuilt from their slot
         self.aux_template = [None if isinstance(a, torch.Tensor) else a
@@ -274,8 +326,28 @@ class _WrapSpec:
         self.single = True
 
     def hints(self, dtype=None, allow_compress=True) -> TransferHints:
-        return TransferHints(dtype=dtype, allow_compress=allow_compress,
-                             name=self.name)
+        return TransferHints(
+            compute_spec=self.runtime.residual_spec(), dtype=dtype,
+            allow_compress=allow_compress, name=self.name)
+
+    def whole(self, leaves):
+        """The whole parameters of ``leaves`` (gathered from their shards
+        on a mesh, without autograd)."""
+        if self.specs is None:
+            return list(leaves)
+        mg = self.runtime.mesh
+        return [sharding.constrain(t, mg, sharding.PartitionSpec(), src=sp)
+                for t, sp in zip(leaves, self.specs)]
+
+    def reduce(self, grads):
+        """The gradients of the whole parameters reduced to their
+        shards."""
+        if self.specs is None:
+            return list(grads)
+        batch = self.runtime.planner.axes.batch
+        return [None if g is None else sharding.reduce_to_shard(
+            g, sp, self.runtime.mesh, batch)
+            for g, sp in zip(grads, self.specs)]
 
     def call(self, x, leaves, aux_tensors):
         it = iter(aux_tensors)
@@ -297,7 +369,7 @@ class _StashedLayer(torch.autograd.Function):
     def forward(ctx, spec: _WrapSpec, x, *rest):
         leaves = rest[:spec.n_params]
         aux = rest[spec.n_params:]
-        out = spec.call(x, leaves, aux)
+        out = spec.call(x, spec.whole(leaves), aux)
         spec.single = isinstance(out, torch.Tensor)
         outs = (out,) if spec.single else tuple(out)
         rt = spec.runtime
@@ -329,7 +401,7 @@ class _StashedLayer(torch.autograd.Function):
             aux[i] = rt.fetch(payload, TransferHints(
                 dtype=dtype, allow_compress=False, name=f"{spec.name}_aux"))
             rt.discard(payload)
-        leaves = ctx.saved_tensors
+        leaves = spec.whole(ctx.saved_tensors)
         with torch.enable_grad():
             x = x.detach().requires_grad_(ctx.needs_input_grad[1])
             leaves = [t.detach().requires_grad_(need) for t, need in
@@ -349,18 +421,22 @@ class _StashedLayer(torch.autograd.Function):
                 allow_unused=True) if pairs and wanted else \
                 [None] * len(wanted)
         it = iter(got)
-        return (None,) + tuple(
-            next(it) if isinstance(t, torch.Tensor) and t.requires_grad
-            else None for t in inputs)
+        out = [next(it) if isinstance(t, torch.Tensor) and t.requires_grad
+               else None for t in inputs]
+        out[1:1 + spec.n_params] = spec.reduce(out[1:1 + spec.n_params])
+        return (None,) + tuple(out)
 
 
 def payload_bytes(payload) -> float:
     """Bytes of every tensor in a tier payload (a tuple of data and codec
-    scale, the data possibly inside a :class:`SpillPayload`)."""
+    scale, the data possibly inside a :class:`SpillPayload` or a
+    :class:`PoolSlice`)."""
     if isinstance(payload, torch.Tensor):
         return float(payload.numel()) * payload.element_size()
     if isinstance(payload, SpillPayload):
         return payload_bytes(payload.inner)
+    if isinstance(payload, PoolSlice):
+        return payload_bytes(payload.data)
     if isinstance(payload, (tuple, list)):
         return sum(payload_bytes(p) for p in payload)
     return 0.0

@@ -1,5 +1,5 @@
 """Pluggable ``MemoryTier`` backing stores — the paper's memory hierarchy as
-a first-class API (one card: no mesh).
+a first-class API.
 
 Each backing store is a :class:`MemoryTier` with a uniform contract:
 
@@ -12,8 +12,10 @@ Each backing store is a :class:`MemoryTier` with a uniform contract:
 Tiers ported so far:
 
 * :class:`DeviceTier`     — KEEP / the oracle DC-DLA(O): nothing leaves HBM.
-* :class:`PooledHbmTier`  — MC-DLA's pooled HBM.  On one device the pool is
-  the card's own HBM: a stash stays where it is (the reference with
+* :class:`PooledHbmTier`  — MC-DLA's pooled HBM.  On a mesh each rank keeps
+  only its ``1/pool_size`` slice of a stash (``core/pool.pool_spec``) and
+  a fetch all-gathers the slices back; on one device the pool is the
+  card's own HBM and a stash stays where it is (the reference with
   ``mesh=None``).
 * :class:`HostTier`       — DC-DLA: pinned host memory over PCIe.  Unlike
   the reference's CPU backend, which no-ops the transfer, a CUDA tensor
@@ -24,6 +26,14 @@ Tiers ported so far:
   codec's kernels before the inner tier's stash.
 * :class:`CheckpointTier` — decorator: the durable snapshot leg
   (:func:`build_ckpt_tier` stacks the snapshot codec on top).
+
+On a mesh (``tier.mesh``, set by :func:`build_tier`) a tier sees each
+rank's local shard of a tensor (``TransferHints.compute_spec`` its
+layout): :meth:`MemoryTier.split` gives the part of it the rank keeps and
+:meth:`MemoryTier.join` the whole local shard back, so a codec packs and
+unpacks each rank's part (with the whole tensor's scale), and
+:meth:`MemoryTier.held` says what share of the local shard one rank
+holds, for the runtime's meter.
 
 Policies map to tiers through :func:`build_tier` — the one place that
 branches on ``MemoryPlan.policy`` strings.  Each registered policy also
@@ -36,6 +46,7 @@ from __future__ import annotations
 
 import abc
 import dataclasses
+import math
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -43,7 +54,10 @@ import torch
 from repro_torch import hw
 from repro_torch.configs.base import MemoryPlan, MeshPlan
 from repro_torch.core.compress import decode_tensor, encode_tensor, get_codec
-from repro_torch.core.pool import PoolAccountant, PoolAxes
+from repro_torch.core.pool import PoolAccountant, PoolAxes, pool_spec
+from repro_torch.parallel.sharding import (PartitionSpec, ShardingPlanner,
+                                           constrain, global_shape,
+                                           local_shape)
 
 # (data, optional codec scale) — the opaque unit a tier hands back from stash
 Payload = Tuple[object, Optional[torch.Tensor]]
@@ -54,12 +68,15 @@ Payload = Tuple[object, Optional[torch.Tensor]]
 class TransferHints:
     """Per-call context a tier may consult when placing a tensor.
 
+    compute_spec: on a mesh, the layout of the local shard handed over
+      (and wanted back on fetch); None off a mesh.
     batch_dim: index of the global-batch dim.
     dtype: dtype to restore on fetch.
     allow_compress: False for tensors that must round-trip bit-exactly.
     name: label for traffic accounting.
     """
 
+    compute_spec: Optional[PartitionSpec] = None
     batch_dim: int = 0
     dtype: Optional[torch.dtype] = None
     allow_compress: bool = True
@@ -72,6 +89,8 @@ class MemoryTier(abc.ABC):
 
     #: short id used in reports and the registry
     kind: str = "abstract"
+    #: the run's MeshGroups (parallel/sharding.py); None off a mesh
+    mesh = None
 
     def __init__(self, plan: MeshPlan, memory: MemoryPlan,
                  device: torch.device, *, stash_all: bool = True):
@@ -118,6 +137,43 @@ class MemoryTier(abc.ABC):
     def describe(self) -> str:
         return self.kind
 
+    # -- a rank's part of a local shard (a mesh) ---------------------------
+    def split(self, x: torch.Tensor, hints: TransferHints):
+        """``(part, layout)``: the part of the local shard ``x`` this rank
+        keeps, and what :meth:`join` needs to rebuild ``x`` (None: the
+        part is ``x``)."""
+        return x, None
+
+    def join(self, part: torch.Tensor, layout, hints: TransferHints
+             ) -> torch.Tensor:
+        """The local shard that :meth:`split` took ``part`` from."""
+        return part
+
+    def stash_part(self, part: torch.Tensor, layout,
+                   hints: TransferHints) -> Payload:
+        """Stash a part :meth:`split` gave (a codec's codes of it)."""
+        return self.stash(part, hints)
+
+    def fetch_part(self, payload: Payload, hints: TransferHints):
+        """``(part, layout)`` of a :meth:`stash_part` payload."""
+        return self.fetch(payload, hints), None
+
+    def held(self, x: torch.Tensor, hints: TransferHints) -> float:
+        """The share of the local shard ``x`` one rank holds once stashed."""
+        return 1.0
+
+
+# ---------------------------------------------------------------------------
+class PoolSlice:
+    """A pooled stash on a mesh: this rank's slice and its layout
+    (``(pool spec, compute spec)``)."""
+
+    __slots__ = ("data", "layout")
+
+    def __init__(self, data: torch.Tensor, layout):
+        self.data = data
+        self.layout = layout
+
 
 # ---------------------------------------------------------------------------
 class DeviceTier(MemoryTier):
@@ -150,16 +206,67 @@ class DeviceTier(MemoryTier):
 class PooledHbmTier(MemoryTier):
     """MC-DLA: the aggregate HBM of the devices as the backing store.
 
-    One card is a pool of one: the stash keeps the tensor in place on the
-    device (callers hand over a tensor they no longer mutate)."""
+    On a mesh a stashed local shard is cut to this rank's block of the
+    pool layout (``core/pool.pool_spec``: each device of the pool keeps
+    1/pool_size of the global tensor) and the block kept; a fetch
+    all-gathers the blocks over the pool's axes (paper Fig. 10).  One card
+    is a pool of one: the stash keeps the tensor in place on the device
+    (callers hand over a tensor they no longer mutate)."""
 
     kind = "pooled_hbm"
 
+    def _layout(self, shape, hints: TransferHints):
+        """``(pool spec, compute spec)`` of a local shard of ``shape``, or
+        None where the rank keeps all of it."""
+        if self.mesh is None or hints.compute_spec is None:
+            return None
+        src = hints.compute_spec
+        spec = pool_spec(global_shape(shape, src, self.mesh),
+                         ShardingPlanner(self.plan), self.memory.placement,
+                         hints.batch_dim, name=hints.name)
+        return None if tuple(spec) == tuple(src) else (spec, src)
+
+    def split(self, x: torch.Tensor, hints: TransferHints):
+        layout = self._layout(x.shape, hints)
+        if layout is None:
+            return x, None
+        spec, src = layout
+        return constrain(x, self.mesh, spec, src), layout
+
+    def join(self, part: torch.Tensor, layout, hints: TransferHints
+             ) -> torch.Tensor:
+        if layout is None:
+            return part
+        spec, src = layout
+        return constrain(part, self.mesh, src, spec)
+
+    def stash_part(self, part: torch.Tensor, layout,
+                   hints: TransferHints) -> Payload:
+        return (part if layout is None else PoolSlice(part, layout), None)
+
+    def fetch_part(self, payload: Payload, hints: TransferHints):
+        data = payload[0]
+        if isinstance(data, PoolSlice):
+            return data.data, data.layout
+        return data, None
+
+    def held(self, x: torch.Tensor, hints: TransferHints) -> float:
+        layout = self._layout(x.shape, hints)
+        if layout is None:
+            return 1.0
+        spec, src = layout
+        full = global_shape(x.shape, src, self.mesh)
+        return math.prod(local_shape(full, spec, self.mesh)) / max(
+            x.numel(), 1)
+
     def stash(self, x: torch.Tensor, hints: TransferHints) -> Payload:
-        return (x, None)
+        part, layout = self.split(x, hints)
+        # a slice is copied, so the rest of x is freed
+        return self.stash_part(part if layout is None else part.clone(),
+                               layout, hints)
 
     def fetch(self, payload: Payload, hints: TransferHints) -> torch.Tensor:
-        return payload[0]
+        return self.join(*self.fetch_part(payload, hints), hints)
 
     def bandwidth(self, plan: MeshPlan, chip: hw.Chip = hw.H100) -> float:
         """bw_aware engages the links of every mesh dimension the pool
@@ -221,6 +328,13 @@ class CompressedTier(MemoryTier):
     through the inner tier and decodes them with the unpack kernel.
     Tensors the hints mark ``allow_compress=False`` (and non-float ones)
     pass through uncompressed.
+
+    On a mesh the kernels run on the part of the local shard this rank
+    keeps (the inner tier's :meth:`~MemoryTier.split`), scaled by the
+    absmax of the whole global tensor (an all-reduce of the max over the
+    mesh), as the reference's per-tensor scale is; so each rank's codes
+    are those of the one-device stash, and its unpacked part is joined
+    after decoding.
     """
 
     kind = "compressed"
@@ -234,17 +348,28 @@ class CompressedTier(MemoryTier):
     def stash(self, x: torch.Tensor, hints: TransferHints) -> Payload:
         if not hints.allow_compress or not self.codec.applies_to(x):
             return self.inner.stash(x, hints)
-        q, scale = encode_tensor(self.codec, x)
-        payload, _ = self.inner.stash(q, hints)
+        part, layout = self.inner.split(x, hints)
+        absmax = None
+        if self.mesh is not None:
+            from repro_torch.parallel import collectives as coll
+            absmax = coll.all_reduce(
+                part.abs().amax().float(),
+                self.mesh.group(self.mesh.names), op="max").to(x.dtype)
+        q, scale = encode_tensor(self.codec, part, absmax)
+        payload, _ = self.inner.stash_part(q, layout, hints)
         return (payload, scale)
 
     def fetch(self, payload: Payload, hints: TransferHints) -> torch.Tensor:
         q, scale = payload
         if scale is None:
             return self.inner.fetch(payload, hints)
-        raw = self.inner.fetch((q, None), hints)
-        return decode_tensor(self.codec, raw, scale,
-                             hints.dtype or torch.bfloat16)
+        raw, layout = self.inner.fetch_part((q, None), hints)
+        return self.inner.join(decode_tensor(self.codec, raw, scale,
+                                             hints.dtype or torch.bfloat16),
+                               layout, hints)
+
+    def held(self, x: torch.Tensor, hints: TransferHints) -> float:
+        return self.inner.held(x, hints)
 
     def bandwidth(self, plan: MeshPlan, chip: hw.Chip = hw.H100) -> float:
         return self.inner.bandwidth(plan, chip)
@@ -366,6 +491,11 @@ class SpillTier(MemoryTier):
             return self.primary.wire_ratio(x, hints)
         return self.overflow.wire_ratio(x, hints)
 
+    def held(self, x: torch.Tensor, hints: TransferHints) -> float:
+        if self._charge_bytes(x) <= self.primary_headroom():
+            return self.primary.held(x, hints)
+        return self.overflow.held(x, hints)
+
     def describe(self) -> str:
         return (f"{self.kind}[{self.primary.describe()}"
                 f"->{self.overflow.describe()}]")
@@ -432,6 +562,9 @@ class CheckpointTier(MemoryTier):
     def wire_ratio(self, x: torch.Tensor, hints: TransferHints) -> float:
         return self.inner.wire_ratio(x, hints)
 
+    def held(self, x: torch.Tensor, hints: TransferHints) -> float:
+        return self.inner.held(x, hints)
+
     def describe(self) -> str:
         return f"{self.kind}[{self.inner.describe()}]"
 
@@ -486,8 +619,9 @@ def registered_policies() -> Tuple[str, ...]:
 
 
 def build_tier(memory: MemoryPlan, plan: MeshPlan,
-               device: torch.device) -> MemoryTier:
-    """Resolve a :class:`MemoryPlan` to its tier stack.
+               device: torch.device, mesh=None) -> MemoryTier:
+    """Resolve a :class:`MemoryPlan` to its tier stack, every tier of it
+    on ``mesh`` (a MeshGroups; None off a mesh).
 
     ``compress != 'none'`` wraps the tier in a :class:`CompressedTier` (a
     no-op stack on the device tier, which never moves bytes)."""
@@ -497,6 +631,12 @@ def build_tier(memory: MemoryPlan, plan: MeshPlan,
     tier = _bind(memory.policy, memory, plan, device)
     if memory.compress != "none" and tier.offloads:
         tier = CompressedTier(tier, memory.compress)
+    stack = [tier]
+    while stack:
+        t = stack.pop()
+        t.mesh = mesh
+        stack += [getattr(t, k) for k in ("inner", "primary", "overflow")
+                  if getattr(t, k, None) is not None]
     return tier
 
 

@@ -23,14 +23,14 @@ and reports the reference's keys:
   so an upper bound, as the reference's note says of XLA's count;
 * ``collective_wire_bytes_per_dev`` — 0: the mesh is one device.  The
   per-kind ring formulas of the reference's HLO parser are kept as
-  :func:`ring_wire_bytes` for the multi-device dry-run (ROADMAP A8);
+  :func:`ring_wire_bytes` for the multi-device dry-run (ROADMAP A8b);
 * ``tier`` and ``traffic`` — ``MemoryRuntime.traffic_report``.
 
 Every figure is counted or modelled from shapes; nothing is timed.  An
 eager trace counts every layer, so the reference's loop probes
 (``probe_scaled``) have no counterpart; ``probes`` / ``--no-probes`` are
 accepted and change nothing.  ``multi_pod`` and a production mesh raise
-naming ROADMAP A8, ``pipeline_cell`` naming A9.
+naming ROADMAP A8b, ``pipeline_cell`` naming A9.
 
     python -m repro_torch.launch.dryrun --arch smollm-135m --shape train_4k
 """
@@ -260,7 +260,7 @@ def lower_cell(arch: str, shape: Union[str, ShapeConfig], *,
     if multi_pod or mesh is not None:
         raise NotImplementedError(
             "the dry-run runs on one device (mesh '1'): the production "
-            "mesh and its collectives port with ROADMAP A8")
+            "mesh and its collectives port with ROADMAP A8b")
     cfg = cfg if cfg is not None else get_arch(arch)
     res = _lower_one(cfg, _shape(shape), policy=policy, placement=placement,
                      compress=compress, opt_bits=opt_bits, accum=accum,
@@ -430,7 +430,7 @@ def main(argv=None) -> int:
 
     if args.multi_pod:
         ap.error("--multi-pod: the dry-run runs on one device; the "
-                 "production mesh ports with ROADMAP A8")
+                 "production mesh ports with ROADMAP A8b")
     if args.pipeline:
         ap.error("--pipeline: the pipeline schedules and their stage tier "
                  "port with ROADMAP A9")

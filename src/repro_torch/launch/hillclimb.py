@@ -118,7 +118,7 @@ def main(argv=None) -> list:
         ap.error("--arch and --shape are required without --wire")
     if args.multi_pod:
         ap.error("--multi-pod: the dry-run runs on one device; the "
-                 "production mesh ports with ROADMAP A8")
+                 "production mesh ports with ROADMAP A8b")
 
     rows = []
     for name in args.variants.split(","):

@@ -54,12 +54,15 @@ listening on PORT``) and ``--peer HOST:PORT`` federate two such routers
 (serve/router.py ``FederatedRouter``): work neither engine of a cluster
 has room for is forwarded to the peer cluster, served there and its
 tokens sent home.  ``--trace`` does not compose with federation.
+Serving runs on one device: under ``torchrun`` (``WORLD_SIZE`` > 1) and
+with ``--multi-pod`` the CLI exits (serving on a mesh is ROADMAP A8b's).
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import logging
+import os
 import time
 from typing import Optional, Union
 
@@ -85,6 +88,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="torch device (cuda, cuda:1, cpu)")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="the production mesh: refused (ROADMAP A8b)")
     ap.add_argument("--batch", type=int, default=None,
                     help="decode slots (default: auto from the tier report)")
     ap.add_argument("--max-len", type=int, default=None,
@@ -342,6 +347,13 @@ def main(argv=None, cfg: Optional[ModelConfig] = None,
     engine (``--role decode``) for callers that check it.  ``cfg`` and ``engine_kwargs``: as :func:`build_engine`'s
     (the command line never sets them)."""
     args = parse_args(argv)
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world > 1 or args.multi_pod:
+        raise SystemExit(
+            f"serving on a mesh ({world} ranks"
+            f"{', --multi-pod' if args.multi_pod else ''}): the serving "
+            "stack runs on one device; serving on a mesh ports with ROADMAP "
+            "A8b")
     logging.basicConfig(level=logging.INFO)
     if args.role == "decode":
         return run_decode_role(args, cfg=cfg, **engine_kwargs)

@@ -22,14 +22,36 @@ time and ``--mtbf-steps``) and logs it (``checkpoint plan: every=K
 ...``).  SIGTERM saves at the next step boundary and exits.  ``--chaos``
 injects kills, preemptions, corrupt snapshots and stage losses
 (``kill@3:2,corrupt@4,preempt@7`` or ``random:<seed>``); a recovery
-rewinds the prefetched stream.  The reference's ``--pipeline*`` and
-``--multi-pod`` flags wait for ROADMAP A8 / A9.
+rewinds the prefetched stream.  The reference's ``--pipeline*`` flags
+wait for ROADMAP A9.
+
+Under ``torchrun`` (``WORLD_SIZE`` > 1) the run trains on a ``("data",
+"model")`` DeviceMesh of the world's ranks, the reference's
+``MeshPlan((2, n // 2), ("data", "model"))`` (the production mesh for a
+full-size run over 256 ranks), each rank holding the shards of the state
+its specs name and its rows of every batch (``models/model.py``); the
+``mcdla`` tier keeps each rank's slice of a stash and gathers it back
+over the pool's ranks.  ``--dist-backend`` picks the process group's
+backend (nccl for a card, gloo for the CPU by default; ranks that share
+one card need gloo, which stages the card's tensors through pinned host
+memory) and the run prints it beside the mesh.  Only rank 0 logs.  The
+``--ckpt-*`` flags and ``--chaos`` refuse a mesh (ROADMAP A8b), as do
+the MoE family (A9), the encoder-decoder and the VLM (A8b).
+``--multi-pod`` asks for the (2, 16, 16) production mesh and exits
+unless the world has its 512 ranks.  ``--grad-compress int8`` keeps the
+error-feedback residual in the state (ROADMAP C16: the step carries it
+unchanged, as the reference's does).
+
+    python -m torch.distributed.run --nproc-per-node 4 \
+        -m repro_torch.launch.train --arch smollm --smoke --device cpu \
+        --policy mcdla --compress fp8 --steps 3
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import logging
+import os
 import sys
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -41,6 +63,7 @@ from repro_torch.configs.base import (DEFAULT_CKPT_DIR, CheckpointPlan,
 from repro_torch.core.dag import build_dag
 from repro_torch.core.policy import MemoryPlanReport, plan_memory, summarize
 from repro_torch.data.pipeline import Prefetcher, SyntheticLM
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models.model import Model, build_model
 from repro_torch.models.transformer import arch_group
 from repro_torch.train.chaos import ChaosMonkey, ChaosSchedule
@@ -72,6 +95,15 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="stash codec: none | fp8 | int8 | blocksparse")
     ap.add_argument("--opt-bits", type=int, default=32)
     ap.add_argument("--accum", type=int, default=1)
+    ap.add_argument("--grad-compress", default="none",
+                    choices=("none", "int8"),
+                    help="int8: keep the error-feedback residual of the "
+                         "compressed all-reduce in the state")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="the (2, 16, 16) production mesh (512 ranks)")
+    ap.add_argument("--dist-backend", default="", choices=("", "nccl", "gloo"),
+                    help="process group backend under torchrun (default: "
+                         "nccl on cuda, gloo on cpu)")
     ap.add_argument("--ckpt-dir", default=DEFAULT_CKPT_DIR)
     ap.add_argument("--ckpt-tier", default="",
                     help="checkpoint through a tier stack: host | mcdla | "
@@ -128,12 +160,15 @@ def plan_cadence(model: Model, shape: ShapeConfig, ckpt: CheckpointPlan,
 
 
 def build_run(args: argparse.Namespace, dtype: Optional[str] = None,
-              cfg: Optional[ModelConfig] = None
-              ) -> Tuple[Model, TrainConfig, SyntheticLM]:
+              cfg: Optional[ModelConfig] = None, mesh=None, plan=None,
+              device=None) -> Tuple[Model, TrainConfig, SyntheticLM]:
     """The model, its train config and its data stream for ``args``;
     ``dtype`` (e.g. "float32") overrides the configuration's.  ``cfg`` (no
     flag sets it) replaces ``--arch``'s configuration, e.g. one cut in
-    depth with ``dataclasses.replace(cfg, num_layers=N)`` to fit a card."""
+    depth with ``dataclasses.replace(cfg, num_layers=N)`` to fit a card.
+    ``mesh`` / ``plan``: the DeviceMesh and MeshPlan of a sharded run,
+    ``device`` its rank's (``--device`` by default); the stream yields
+    global batches."""
     if cfg is None:
         cfg = get_arch(args.arch)
     if dtype is not None:
@@ -148,41 +183,83 @@ def build_run(args: argparse.Namespace, dtype: Optional[str] = None,
                      learning_rate=args.lr, grad_accum=args.accum,
                      checkpoint_dir=args.ckpt_dir,
                      checkpoint_every=max(25, args.steps // 4),
-                     log_every=args.log_every, seed=args.seed)
+                     log_every=args.log_every, seed=args.seed,
+                     grad_compress=args.grad_compress)
     memory = MemoryPlan(policy=args.policy, placement=args.placement,
                         compress=args.compress, opt_state_bits=args.opt_bits)
     run = RunConfig(model=cfg, shape=ShapeConfig("train", seq, batch,
                                                  "train"),
-                    memory=memory, train=tc)
-    model = build_model(run, device=args.device)
+                    memory=memory, train=tc,
+                    **({} if plan is None else dict(mesh=plan)))
+    model = build_model(run, device=device or args.device, mesh=mesh)
     return model, tc, SyntheticLM(cfg, batch=batch, seq=seq, seed=tc.seed)
+
+
+def setup_mesh(args: argparse.Namespace):
+    """``(mesh, plan, device, backend)`` of a run under ``torchrun``
+    (``WORLD_SIZE`` > 1), after joining its process group; ``(None, None,
+    None, "")`` for one process.  Exits for what a mesh refuses."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if args.multi_pod and world != 512:
+        raise SystemExit(
+            f"--multi-pod trains on the (2, 16, 16) production mesh of 512 "
+            f"ranks; this run has {world}: runs on the production mesh port "
+            "with ROADMAP A8b")
+    if world == 1:
+        return None, None, None, ""
+    if args.ckpt_tier or args.ckpt_every or args.ckpt_async or \
+            args.ckpt_shards != 1 or args.ckpt_codec != "none" or \
+            args.ckpt_dir != DEFAULT_CKPT_DIR or args.chaos:
+        raise SystemExit("--ckpt-* and --chaos on a mesh: checkpoints of a "
+                         "sharded state port with ROADMAP A8b")
+    _, world, device, backend = mesh_mod.init_distributed(
+        args.dist_backend, args.device)
+    if args.multi_pod or (not args.smoke and world >= 256):
+        return (mesh_mod.make_production_mesh(multi_pod=args.multi_pod),
+                mesh_mod.plan_for(multi_pod=args.multi_pod), device,
+                backend)
+    return (mesh_mod.make_host_mesh(world), mesh_mod.host_plan(world),
+            device, backend)
 
 
 def main(argv=None, cfg: Optional[ModelConfig] = None) -> Dict[str, Any]:
     """Train and log; returns ``{"model", "tc", "source", "state",
     "history", "mgr", "chaos", "ckpt"}`` (history: the logged steps'
-    metrics; mgr: the CheckpointManager; chaos: the ChaosMonkey or None;
-    ckpt: the CheckpointPlan in effect, its planned cadence in ``every``)
-    for callers that check the run.  ``cfg``: as :func:`build_run`'s (the
-    command line never sets it).  SIGTERM / SIGINT handlers are installed
-    for the run and restored after it."""
+    metrics; mgr: the CheckpointManager, None on a mesh; chaos: the
+    ChaosMonkey or None; ckpt: the CheckpointPlan in effect, its planned
+    cadence in ``every``) for callers that check the run.  ``cfg``: as
+    :func:`build_run`'s (the command line never sets it).  SIGTERM /
+    SIGINT handlers are installed for the run and restored after it.
+    Under ``torchrun`` the process group is left to the caller's process
+    to end (it ends with it)."""
     args = parse_args(argv)
-    logging.basicConfig(level=logging.INFO, stream=sys.stdout,
+    rank = int(os.environ.get("RANK", "0"))
+    logging.basicConfig(level=logging.INFO if rank == 0 else logging.WARNING,
+                        stream=sys.stdout,
                         format="%(asctime)s %(name)s %(message)s")
     ckpt = checkpoint_plan(args)
-    model, tc, source = build_run(args, cfg=cfg)
+    mesh, plan, device, backend = setup_mesh(args)
+    model, tc, source = build_run(args, cfg=cfg, mesh=mesh, plan=plan,
+                                  device=device)
     cfg = model.cfg
     log = logging.getLogger(__name__)
+    if mesh is not None and rank == 0:
+        staged = " (the card's tensors staged through pinned host memory)" \
+            if backend == "gloo" and model.device.type == "cuda" else ""
+        print(f"mesh: {plan.shape} over {plan.axes}, "
+              f"{model.mesh.size()} ranks; backend {backend}{staged}; "
+              f"batch rows over {model.planner.axes.batch}", flush=True)
     group, n_groups = arch_group(cfg)
     stashed = model.stash_groups
     # an encoder-decoder's encoder layers are wrapped (stashed) too
     subs = stashed * len(group) + (cfg.encoder_layers
                                    if model.runtime.offloads else 0)
-    print(f"model: {cfg.name} {cfg.num_layers}L d_model={cfg.d_model} "
-          f"{cfg.dtype} on {model.device}; tier "
-          f"{model.runtime.tier.describe()}, {stashed} of {n_groups} "
-          f"layer groups stashed ({subs} sub-layers); "
-          f"batch {source.batch} x {source.seq}", flush=True)
+    if rank == 0:
+        print(f"model: {cfg.name} {cfg.num_layers}L d_model={cfg.d_model} "
+              f"{cfg.dtype} on {model.device}; tier "
+              f"{model.runtime.tier.describe()}, {stashed} of {n_groups} "
+              f"layer groups stashed ({subs} sub-layers); "
+              f"batch {source.batch} x {source.seq}", flush=True)
     shape = ShapeConfig("train", source.seq, source.batch, "train")
     if args.policy == "auto":
         log.info("plan: %s", summarize(model.runtime.plan_report(
@@ -205,7 +282,7 @@ def main(argv=None, cfg: Optional[ModelConfig] = None) -> Dict[str, Any]:
         log.info("chaos schedule: %s", sched.spec())
     history: List[Dict[str, float]] = []
     hooks = {"on_log": lambda step, m: history.append(dict(m, step=step))}
-    mgr = make_manager(model, tc, ckpt, chaos)
+    mgr = make_manager(model, tc, ckpt, chaos) if mesh is None else None
     elastic = None
     if chaos is not None:
         run = RunConfig(model=cfg, shape=shape, memory=model.memory,
@@ -219,9 +296,17 @@ def main(argv=None, cfg: Optional[ModelConfig] = None) -> Dict[str, Any]:
     finally:
         data.close()
         handler.uninstall()
+    if mesh is not None and rank == 0 and model.runtime.offloads:
+        print(f"pool traffic per rank: {model.runtime.traffic_summary()}",
+              flush=True)
     return {"model": model, "tc": tc, "source": source, "state": state,
             "history": history, "mgr": mgr, "chaos": chaos, "ckpt": ckpt}
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        import torch.distributed as dist
+        if dist.is_initialized():
+            dist.destroy_process_group()

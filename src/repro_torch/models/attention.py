@@ -51,6 +51,24 @@ def attn_init(gen: torch.Generator, cfg: ModelConfig, dtype, device,
     return p
 
 
+def attn_specs(cfg: ModelConfig, planner) -> dict:
+    """The sharding specs of one layer's attention weights (the
+    reference's): d_model over the FSDP axes, heads over the tensor
+    axes."""
+    H, K, hd, D = (cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim,
+                   cfg.d_model)
+    fs, tp = planner.axes.fsdp, planner.axes.tensor
+    s = {"wq": planner.spec((D, H * hd), [fs, tp], "wq"),
+         "wk": planner.spec((D, K * hd), [fs, tp], "wk"),
+         "wv": planner.spec((D, K * hd), [fs, tp], "wv"),
+         "wo": planner.spec((H * hd, D), [tp, fs], "wo")}
+    if cfg.use_qkv_bias:
+        s["bq"] = planner.spec((H * hd,), [tp], "bq")
+        s["bk"] = planner.spec((K * hd,), [tp], "bk")
+        s["bv"] = planner.spec((K * hd,), [tp], "bv")
+    return s
+
+
 # ---------------------------------------------------------------------------
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool, window: int = 0, q_chunk: int = 0,

@@ -35,6 +35,20 @@ def frontend_init(gen: torch.Generator, cfg: ModelConfig, dtype,
             "pos": pos.to(dtype)}
 
 
+def frontend_specs(cfg: ModelConfig, planner) -> dict:
+    """The sharding specs of ``frontend_init``'s leaves (the
+    reference's)."""
+    d_in = frontend_dim(cfg)
+    if not d_in:
+        return {}
+    fs = planner.axes.fsdp
+    return {
+        "proj": planner.spec((d_in, cfg.d_model), [None, fs], "fe_proj"),
+        "pos": planner.spec((cfg.frontend_tokens, cfg.d_model), [None, fs],
+                            "fe_pos"),
+    }
+
+
 def _project(params: dict, raw: torch.Tensor) -> torch.Tensor:
     """(B, T, raw width) -> (B, T, D): the projection plus the first T
     learned positions."""

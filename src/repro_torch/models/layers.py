@@ -19,24 +19,35 @@ from repro_torch.configs.base import ModelConfig
 
 @dataclasses.dataclass
 class ModelContext:
-    """Everything the model functions need besides params/inputs.  One
-    device and no mesh: the reference's layout hooks (``act``/``resid``
-    sharding constraints) have nothing to do here and are left out."""
+    """Everything the model functions need besides params/inputs.  The
+    activations keep one layout (a rank's rows, whole over ``"model"``),
+    so the reference's layout hooks (``act``/``resid`` sharding
+    constraints) are left out; on a mesh ``param_specs`` is the tree of
+    the parameter shards' specs (None off a mesh)."""
 
     cfg: ModelConfig
     mode: str = "train"                  # train | prefill | decode
     runtime: Optional[Any] = None        # core.runtime.MemoryRuntime
+    param_specs: Optional[Any] = None
 
-    def wrap(self, name: str, fn: Callable) -> Callable:
+    def wrap(self, name: str, fn: Callable, specs=None) -> Callable:
         """vDNN-wrap a sub-layer for training (``MemoryRuntime.wrap_layer``):
         the layer's input is stashed to the configured memory tier and the
         layer recomputed in backward.  No-op for serving or a tier that
         does not offload.  The reference also returns the bare layer
         without a mesh; here the card is the one-device mesh, so the port
-        wraps whenever the tier offloads."""
+        wraps whenever the tier offloads.  ``specs``: the specs of the
+        parameter shards the layer is given on a mesh."""
         if self.mode != "train" or self.runtime is None:
             return fn
-        return self.runtime.wrap_layer(fn, name=name)
+        return self.runtime.wrap_layer(fn, name=name, specs=specs)
+
+    def gathered(self, fn: Callable, specs=None) -> Callable:
+        """``fn`` on the whole parameters of the shards it is given
+        (``MemoryRuntime.gathered``); ``fn`` itself off a mesh."""
+        if self.runtime is None:
+            return fn
+        return self.runtime.gathered(fn, specs)
 
 
 # ---------------------------------------------------------------------------
@@ -158,12 +169,16 @@ def _chunk_nll(hh: torch.Tensor, ll: torch.Tensor, mm: torch.Tensor,
 def chunked_cross_entropy(h: torch.Tensor, table: torch.Tensor,
                           labels: torch.Tensor,
                           mask: Optional[torch.Tensor] = None,
-                          chunk: int = 512
+                          chunk: int = 512,
+                          count: Optional[torch.Tensor] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """h: (B, S, D); table: (V, D) (tied head) -> (mean loss, n_tokens).
 
     Walks S in at most 8 chunks; each chunk's (B, chunk, V) logits are
-    recomputed in backward (``torch.utils.checkpoint``), never saved."""
+    recomputed in backward (``torch.utils.checkpoint``), never saved.
+    ``count``: the tokens to divide by instead of ``mask``'s (a rank's
+    rows of a global batch: the global count, so the ranks' losses sum to
+    the global mean)."""
     B, S, _ = h.shape
     chunk = max(chunk, -(-S // 8))     # <= 8 chunks, as the reference
     chunk = min(chunk, S)
@@ -174,5 +189,5 @@ def chunked_cross_entropy(h: torch.Tensor, table: torch.Tensor,
         sl = slice(s0, s0 + chunk)
         tot = tot + checkpoint(_chunk_nll, h[:, sl], labels[:, sl],
                                mask[:, sl], table, use_reentrant=False)
-    cnt = mask.sum()
+    cnt = mask.sum() if count is None else count
     return tot / torch.clamp(cnt, min=1.0), cnt

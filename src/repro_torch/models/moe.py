@@ -39,6 +39,38 @@ def capacity(cfg: ModelConfig, tokens: int) -> int:
         8)
 
 
+def use_ep(cfg: ModelConfig, planner) -> bool:
+    """Whether the experts split over the tensor axes (expert
+    parallelism, ROADMAP A9): the reference's test."""
+    tp = planner.axes.size(planner.axes.tensor)
+    return cfg.num_experts % max(tp, 1) == 0 and tp > 1
+
+
+def moe_specs(cfg: ModelConfig, planner) -> dict:
+    """The sharding specs of one layer's MoE weights (the reference's):
+    experts over the tensor axes under expert parallelism, else their
+    hidden dim."""
+    E, D, F = cfg.num_experts, cfg.d_model, cfg.d_ff
+    fs, tp = planner.axes.fsdp, planner.axes.tensor
+    s = planner.spec
+    if use_ep(cfg, planner):
+        sp = {"router": s((D, E), [None, None], "router"),
+              "w1": s((E, D, F), [tp, fs, None], "moe_w1"),
+              "w3": s((E, D, F), [tp, fs, None], "moe_w3"),
+              "w2": s((E, F, D), [tp, None, fs], "moe_w2")}
+    else:
+        sp = {"router": s((D, E), [None, None], "router"),
+              "w1": s((E, D, F), [None, fs, tp], "moe_w1"),
+              "w3": s((E, D, F), [None, fs, tp], "moe_w3"),
+              "w2": s((E, F, D), [None, tp, fs], "moe_w2")}
+    if cfg.shared_experts:
+        Fs = F * cfg.shared_experts
+        sp["shared_w1"] = s((D, Fs), [fs, tp], "shared_w1")
+        sp["shared_w3"] = s((D, Fs), [fs, tp], "shared_w3")
+        sp["shared_w2"] = s((Fs, D), [tp, fs], "shared_w2")
+    return sp
+
+
 # ---------------------------------------------------------------------------
 def _expert_init(gen: torch.Generator, shape, scale: float, dtype, device,
                  stack: int) -> torch.Tensor:

@@ -147,6 +147,26 @@ def mamba_init(gen: torch.Generator, cfg: ModelConfig, dtype, device,
     }
 
 
+def mamba_specs(cfg: ModelConfig, planner) -> dict:
+    """The sharding specs of one block's parameters (the reference's)."""
+    D, di = cfg.d_model, cfg.d_inner
+    H, N, G = cfg.ssm_heads, cfg.ssm_state, cfg.ssm_groups
+    W = cfg.ssm_conv_width
+    conv_dim = di + 2 * G * N
+    fs, tp = planner.axes.fsdp, planner.axes.tensor
+    s = planner.spec
+    return {
+        "in_proj": s((D, 2 * di + 2 * G * N + H), [fs, tp], "ssm_in"),
+        "conv_w": s((W, conv_dim), [None, tp], "conv_w"),
+        "conv_b": s((conv_dim,), [tp], "conv_b"),
+        "A_log": s((H,), [None], "A_log"),
+        "D": s((H,), [None], "ssm_D"),
+        "dt_bias": s((H,), [None], "dt_bias"),
+        "norm_scale": s((di,), [None], "ssm_norm"),
+        "out_proj": s((di, D), [tp, fs], "ssm_out"),
+    }
+
+
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                  state: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -32,10 +32,12 @@ import torch
 
 from repro_torch import tree
 from repro_torch.configs.base import ModelConfig
+from repro_torch.parallel.sharding import PartitionSpec as P
 from repro_torch.models import frontends
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import (attention_block, attn_init,
+                                          attn_specs,
                                           cross_attention_block,
                                           encode_cross_kv, init_kv_cache)
 from repro_torch.models.layers import (ModelContext, activation_fn,
@@ -73,6 +75,86 @@ def mlp_init(gen, cfg: ModelConfig, dtype, device, stack: int) -> dict:
     if cfg.act == "silu":                 # gated (SwiGLU)
         p["w3"] = dense_init(gen, D, F, dtype, device, stack=stack)
     return p
+
+
+def mlp_specs(cfg: ModelConfig, planner) -> dict:
+    D, F = cfg.d_model, cfg.d_ff
+    fs, tp = planner.axes.fsdp, planner.axes.tensor
+    s = {"w1": planner.spec((D, F), [fs, tp], "w1"),
+         "w2": planner.spec((F, D), [tp, fs], "w2")}
+    if cfg.act == "silu":
+        s["w3"] = planner.spec((D, F), [fs, tp], "w3")
+    return s
+
+
+def sublayer_specs(cfg: ModelConfig, planner, kind: str) -> dict:
+    """The sharding specs of one sub-layer of ``kind`` (unstacked; the
+    reference's)."""
+    def nspec():
+        return {"scale": P()} if cfg.norm == "rmsnorm" else \
+            {"scale": P(), "bias": P()}
+    if kind == "ssm":
+        return {"ln1": nspec(), "ssm": ssm_mod.mamba_specs(cfg, planner)}
+    if kind == "dec":
+        return {"ln1": nspec(), "attn": attn_specs(cfg, planner),
+                "ln_x": nspec(), "cross": attn_specs(cfg, planner),
+                "ln2": nspec(), "mlp": mlp_specs(cfg, planner)}
+    s = {"ln1": nspec(), "attn": attn_specs(cfg, planner)}
+    if kind == "moe":
+        s["ln2"] = nspec()
+        s["moe"] = moe_mod.moe_specs(cfg, planner)
+    else:
+        if not cfg.parallel_block:
+            s["ln2"] = nspec()
+        s["mlp"] = mlp_specs(cfg, planner)
+    return s
+
+
+def stacked_spec(spec: P) -> P:
+    """The spec of a leaf stacked on a leading layer axis."""
+    return P(*((None,) + tuple(spec)))
+
+
+def layer_spec(spec: P) -> P:
+    """The spec of one layer of a stacked leaf (:func:`stacked_spec`'s
+    inverse)."""
+    return P(*tuple(spec)[1:])
+
+
+def param_specs(cfg: ModelConfig, planner) -> Params:
+    """The sharding specs of ``init_params``' tree (the reference's):
+    the embedding tables vocab over the tensor axes and d_model over the
+    FSDP axes, every group leaf stacked."""
+    group, _ = arch_group(cfg)
+    fs, tp = planner.axes.fsdp, planner.axes.tensor
+    V, D = cfg.padded_vocab, cfg.d_model
+    nspec = {"scale": P()} if cfg.norm == "rmsnorm" else \
+        {"scale": P(), "bias": P()}
+    s: Params = {"embed": planner.spec((V, D), [tp, fs], "embed"),
+                 "final_norm": dict(nspec)}
+    if not cfg.tie_embeddings:
+        s["unembed"] = planner.spec((V, D), [tp, fs], "unembed")
+    if cfg.frontend != "none":
+        s["frontend"] = frontends.frontend_specs(cfg, planner)
+
+    def stacked(spec_tree):
+        return tree.map(stacked_spec, spec_tree)
+
+    groups: Params = {}
+    for j, kind in enumerate(group):
+        if kind == "shared":
+            continue
+        groups[f"sub_{j}"] = stacked(sublayer_specs(cfg, planner, kind))
+    s["groups"] = groups
+    if "shared" in group:
+        s["shared"] = sublayer_specs(cfg, planner, "shared")
+    if cfg.is_encoder_decoder:
+        s["encoder"] = {
+            "layers": stacked(sublayer_specs(cfg, planner, "enc")),
+            "final_norm": dict(nspec),
+        }
+        s["groups"] = {"sub_0": stacked(sublayer_specs(cfg, planner, "dec"))}
+    return s
 
 
 def mlp_block(params: dict, ctx: ModelContext, x: torch.Tensor
@@ -283,6 +365,13 @@ def forward_train(params: Params, ctx: ModelContext, tokens: torch.Tensor,
     leaves, as ``jax.grad`` sums over the reference's closed-over
     ``params["shared"]``.
 
+    On a mesh (``ctx.param_specs`` set) the groups' leaves are this
+    rank's shards: each sub-layer gathers its layer's shards right before
+    use (in the wrapper's forward and recompute, or under autograd when
+    it runs bare) and reduces its gradients back to them; the tables, the
+    final norm and the shared block come whole (``Model.loss_fn`` gathers
+    them once a step).
+
     An encoder-decoder first encodes ``frames`` (each encoder layer
     wrapped too) and hands the encoder's states to every decoder layer as
     float aux: the runtime stashes them uncompressed beside the layer's
@@ -299,8 +388,14 @@ def forward_train(params: Params, ctx: ModelContext, tokens: torch.Tensor,
     def bare(kind):
         return functools.partial(_train_sublayer, ctx, kind)
 
-    wrapped = {k: ctx.wrap(f"{k}_layer", bare(k)) for k in set(group)}
-    unwrapped = {k: bare(k) for k in set(group)}
+    # on a mesh the groups' leaves are shards, gathered per layer (the
+    # shared block's come whole: Model.loss_fn gathers them once a step)
+    kspecs = {kind: None if ctx.param_specs is None or kind == "shared" else
+              tree.map(layer_spec, ctx.param_specs["groups"][f"sub_{j}"])
+              for j, kind in enumerate(group)}
+    wrapped = {k: ctx.wrap(f"{k}_layer", bare(k), kspecs[k])
+               for k in set(group)}
+    unwrapped = {k: ctx.gathered(bare(k), kspecs[k]) for k in set(group)}
     views = {j: _layer_views(params["groups"][f"sub_{j}"])
              for j, kind in enumerate(group) if kind != "shared"}
     if stash_groups is None:
@@ -361,6 +456,41 @@ def forward_serve(params: Params, ctx: ModelContext, tokens: torch.Tensor,
 
 # ---------------------------------------------------------------------------
 # caches
+def cache_specs(cfg: ModelConfig, planner, batch: int, seq: int) -> Params:
+    """Pooled-KV sharding of the serving caches (the reference's): batch
+    over the batch axes, the sequence over the tensor axes.  No serving
+    path of the port runs on a mesh yet (ROADMAP A8b)."""
+    group, n_groups = arch_group(cfg)
+    if cfg.is_encoder_decoder:
+        group = ("dec",)
+    K, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    b, tp = planner.axes.batch, planner.axes.tensor
+
+    def one(kind):
+        if kind == "ssm":
+            conv_dim = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+            return {
+                "conv": planner.spec(
+                    (n_groups, batch, cfg.ssm_conv_width - 1, conv_dim),
+                    [None, b, None, tp], "conv_cache"),
+                "ssm": planner.spec(
+                    (n_groups, batch, cfg.ssm_heads, cfg.ssm_head_dim,
+                     cfg.ssm_state), [None, b, tp, None, None], "ssm_cache"),
+            }
+        kv = planner.spec((n_groups, batch, seq, K, hd),
+                          [None, b, tp, None, None], "kv_cache")
+        c = {"k": kv, "v": kv}
+        if kind == "dec":
+            ckv = planner.spec((n_groups, batch, cfg.frontend_tokens, K, hd),
+                               [None, b, None, None, None], "cross_cache")
+            c["ck"] = ckv
+            c["cv"] = ckv
+        return c
+
+    return {f"sub_{j}": one(kind)
+            for j, kind in enumerate(group) if kind != "none"}
+
+
 def init_caches(cfg: ModelConfig, batch: int, seq: int, dtype, device
                 ) -> Params:
     """Stacked caches matching forward_serve: (n_groups, B, S, K, hd) k/v

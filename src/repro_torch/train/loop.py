@@ -1,6 +1,10 @@
 """Training loop: the train-step builder and the driver with gradient
 accumulation, checkpointing, fault handling and metrics (the reference's
-``repro/train/loop.py``; its pipelined schedules are not ported yet)."""
+``repro/train/loop.py``; its pipelined schedules are not ported yet).
+
+On a mesh each rank steps on its shards and its rows of every global
+batch; the metrics are the global batch's.  Checkpoints of a sharded
+state, and with them chaos and elastic recovery, are ROADMAP A8b's."""
 from __future__ import annotations
 
 import logging
@@ -25,13 +29,24 @@ Pytree = Any
 
 def grads_of(model: Model, tc: TrainConfig, params: Pytree,
              batch: Dict[str, torch.Tensor]):
-    """``(grads, loss, metrics)`` of one batch; ``tc.grad_accum > 1``
-    accumulates over that many microbatches."""
-    if tc.grad_accum <= 1:
+    """``(grads, loss, metrics)`` of one global batch; ``tc.grad_accum >
+    1`` accumulates over that many microbatches.  On a mesh the rank
+    takes its rows of the batch (``Model.shard_batch``) and its gradients
+    are those of its parameter shards; the loss and the loss metrics are
+    summed over the batch ranks' shares (each rank's loss is its tokens'
+    share of the global mean)."""
+    n_micro = max(tc.grad_accum, 1)
+    batch = model.shard_batch(batch, n_micro)
+    if n_micro == 1:
         loss, metrics, grads = value_and_grad(model.loss_fn, params, batch)
-        return grads, loss, metrics
-    return accumulate_microbatches(model.loss_fn, params, batch,
-                                   tc.grad_accum)
+    else:
+        grads, loss, metrics = accumulate_microbatches(
+            model.loss_fn, params, batch, n_micro)
+    if model.mesh is not None:
+        loss = model.batch_sum(loss)
+        metrics = {k: model.batch_sum(v) if k in ("loss", "aux_loss") else v
+                   for k, v in metrics.items()}
+    return grads, loss, metrics
 
 
 def make_train_step(model: Model, tc: TrainConfig
@@ -42,8 +57,10 @@ def make_train_step(model: Model, tc: TrainConfig
 
     def train_step(state, batch):
         g, _, metrics = grads_of(model, tc, state["params"], batch)
+        specs = model.param_specs() if model.mesh is not None else None
         params, opt, opt_metrics = apply_adamw(state["params"], g,
-                                               state["opt"], tc)
+                                               state["opt"], tc,
+                                               mesh=model.mesh, specs=specs)
         new_state = dict(state, params=params, opt=opt,
                          step=state["step"] + 1)
         return new_state, dict(metrics, **opt_metrics)
@@ -109,13 +126,21 @@ def train(model: Model, tc: TrainConfig, data_iter, *,
     """
     hooks = hooks or {}
     step_fn = make_train_step(model, tc)
-    if mgr is None:
+    sharded = model.mesh is not None
+    if sharded and (mgr is not None or chaos is not None or
+                    (ckpt is not None and ckpt.enabled)):
+        raise NotImplementedError(
+            "checkpoints, chaos and elastic recovery of a sharded state port "
+            "with ROADMAP A8b")
+    if mgr is None and not sharded:
         mgr = make_manager(model, tc, ckpt, chaos)
     ckpt_every = (ckpt.every if ckpt is not None and ckpt.every > 0
                   else tc.checkpoint_every)
 
     start_step = 0
-    if state is None:
+    if state is None and sharded:
+        state = init_state(model, tc)
+    elif state is None:
         restored = mgr.restore_latest()
         if restored is not None:
             start_step, payload = restored
@@ -144,7 +169,7 @@ def train(model: Model, tc: TrainConfig, data_iter, *,
                     tc, data_iter, err.stage)
                 step_fn = make_train_step(model, tc)
                 continue
-        in_flight = mgr.in_flight
+        in_flight = mgr is not None and mgr.in_flight
         t0 = time.perf_counter()
         if chaos is not None:
             state, out = fault_mod.retry_step(
@@ -169,6 +194,12 @@ def train(model: Model, tc: TrainConfig, data_iter, *,
             if "on_log" in hooks:
                 hooks["on_log"](done, metrics)
         stop = fault_handler is not None and fault_handler.should_stop
+        if sharded:
+            if stop:
+                log.warning("preemption requested — exiting (no checkpoint "
+                            "of a sharded state: ROADMAP A8b)")
+                break
+            continue
         if done % ckpt_every == 0 or stop:
             data_state = (data_iter.get_state()
                           if hasattr(data_iter, "get_state") else None)
@@ -177,10 +208,11 @@ def train(model: Model, tc: TrainConfig, data_iter, *,
             mgr.wait()      # the preemption checkpoint must land on disk
             log.warning("preemption requested — checkpoint written, exiting")
             break
-    mgr.wait()
+    if mgr is not None:
+        mgr.wait()
     if model.runtime.offloads:
         log.info("memory traffic: %s", model.runtime.traffic_summary())
-    if mgr.runtime is not None:
+    if mgr is not None and mgr.runtime is not None:
         log.info("checkpoint traffic: %s", mgr.runtime.traffic_summary())
     if chaos is not None:
         log.info("chaos events fired: %s", chaos.summary())

@@ -6,6 +6,15 @@ The reference's optimizer, in plain torch (it has no kernel there).  The
 from 8 bytes/param to ~2.  Parameters are updated in place (the reference
 returns new arrays; in place keeps one copy of the weights on the card),
 and the function returns them all the same.
+
+On a mesh the parameters, gradients and moments are this rank's shards
+(``opt_state_specs``: the moments shard as their parameters, an 8-bit
+moment's per-row scale drops the last dim's axes).  The update is
+elementwise; the clip's global norm sums each element once (a shard's
+squares all-reduced over the axes that split it, not over those that
+replicate it), and an 8-bit row split over ranks takes its absmax (its
+log range) over the whole row, so every rank's codes are the one-device
+run's.
 """
 from __future__ import annotations
 
@@ -17,6 +26,8 @@ import torch
 from repro_torch import tree
 from repro_torch.configs.base import TrainConfig
 from repro_torch.kernels.ref import true_div
+from repro_torch.parallel import sharding
+from repro_torch.parallel.sharding import PartitionSpec as P
 
 Pytree = Any
 INT8_MAX = 127.0
@@ -31,9 +42,19 @@ INT8_MAX = 127.0
 _V_FLOOR = 1e-16
 
 
-def _q8(x: torch.Tensor) -> Dict[str, torch.Tensor]:
-    scale = true_div(torch.clamp(x.abs().amax(dim=-1, keepdim=True),
-                                 min=1e-30), INT8_MAX)
+def _whole_row(t: torch.Tensor, op: str, row=None) -> torch.Tensor:
+    """``t`` (a per-row statistic) reduced with ``op`` over the ranks of
+    ``row``, the group a sharded last dim is split over (None: whole)."""
+    if row is None:
+        return t
+    from repro_torch.parallel import collectives as coll
+    return coll.all_reduce(t, row, op)
+
+
+def _q8(x: torch.Tensor, row=None) -> Dict[str, torch.Tensor]:
+    scale = true_div(torch.clamp(_whole_row(
+        x.abs().amax(dim=-1, keepdim=True), "max", row), min=1e-30),
+        INT8_MAX)
     q = torch.clamp(torch.round(x / scale), -INT8_MAX, INT8_MAX)
     return {"q": q.to(torch.int8), "scale": scale.float()}
 
@@ -42,10 +63,10 @@ def _dq8(s: Dict[str, torch.Tensor]) -> torch.Tensor:
     return s["q"].float() * s["scale"]
 
 
-def _q8_log(x: torch.Tensor) -> Dict[str, torch.Tensor]:
+def _q8_log(x: torch.Tensor, row=None) -> Dict[str, torch.Tensor]:
     lx = torch.log(torch.clamp(x, min=_V_FLOOR))
-    lo = lx.amin(dim=-1, keepdim=True)
-    hi = lx.amax(dim=-1, keepdim=True)
+    lo = _whole_row(lx.amin(dim=-1, keepdim=True), "min", row)
+    hi = _whole_row(lx.amax(dim=-1, keepdim=True), "max", row)
     span = torch.clamp(hi - lo, min=1e-6)
     q = torch.clamp(torch.round((lx - lo) / span * 254.0 - 127.0),
                     -INT8_MAX, INT8_MAX)
@@ -83,6 +104,24 @@ def init_opt_state(params: Pytree, bits: int = 32) -> Pytree:
             "count": torch.zeros((), dtype=torch.int32, device=device)}
 
 
+def opt_state_specs(param_specs: Pytree, bits: int = 32) -> Pytree:
+    """Moment sharding mirrors the parameter sharding (per-row scales drop
+    the last dim's axis): the reference's table."""
+
+    def row(sp: P) -> P:
+        parts = tuple(sp)
+        return P(*(parts[:-1] + (None,))) if parts else P()
+
+    def like_m(sp: P):
+        return sp if bits != 8 else {"q": sp, "scale": row(sp)}
+
+    def like_v(sp: P):
+        return sp if bits != 8 else {"q": sp, "lo": row(sp), "hi": row(sp)}
+
+    return {"m": tree.map(like_m, param_specs),
+            "v": tree.map(like_v, param_specs), "count": P()}
+
+
 # ---------------------------------------------------------------------------
 def lr_schedule(tc: TrainConfig, step: torch.Tensor) -> torch.Tensor:
     """Linear warmup + cosine decay to 10% (float32, as the reference)."""
@@ -95,9 +134,31 @@ def lr_schedule(tc: TrainConfig, step: torch.Tensor) -> torch.Tensor:
     return tc.learning_rate * warm * cos
 
 
-def global_norm(grads: Pytree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                          for g in tree.leaves(grads)))
+def global_norm(grads: Pytree, mesh=None, specs: Pytree = None
+                ) -> torch.Tensor:
+    """The gradients' global L2 norm; on a mesh (``specs`` the shards'
+    specs) the shards' squares summed over the axes that split them."""
+    if mesh is None:
+        return torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                              for g in tree.leaves(grads)))
+    by_axes: Dict[tuple, torch.Tensor] = {}
+    for g, sp in zip(tree.leaves(grads), tree.leaves(specs)):
+        axes = mesh.axes([a for d in sharding.dim_axes(sp, g.ndim)
+                          for a in d])
+        sq = torch.sum(torch.square(g.float()))
+        by_axes[axes] = by_axes[axes] + sq if axes in by_axes else sq
+    from repro_torch.parallel import collectives as coll
+    total = sum(coll.all_reduce(by_axes[axes], mesh.group(axes)) if axes
+                else by_axes[axes] for axes in sorted(by_axes))
+    return torch.sqrt(total)
+
+
+def _row_group(p: torch.Tensor, spec: P, mesh):
+    """The process group a sharded last dim of ``p`` is split over (None
+    when the rows are whole on this rank)."""
+    if mesh is None or p.ndim == 0:
+        return None
+    return mesh.group(sharding.dim_axes(spec, p.ndim)[-1])
 
 
 def _adamw_f32(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
@@ -117,15 +178,17 @@ def _adamw_f32(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
 
 @torch.no_grad()
 def apply_adamw(params: Pytree, grads: Pytree, state: Pytree,
-                tc: TrainConfig) -> Tuple[Pytree, Pytree, Dict[str, Any]]:
+                tc: TrainConfig, mesh=None, specs: Pytree = None
+                ) -> Tuple[Pytree, Pytree, Dict[str, Any]]:
     """One AdamW step with global-norm clipping.  Returns (params, state,
     metrics); ``params`` are the same tensors, updated in place, and so
     are float32 moments (8-bit ones are requantised into new leaves).  A
     stacked leaf with float32 moments is updated a layer at a time, so
     the float32 temporaries are one layer's (a mixtral expert leaf is
-    1.9 GB of float32 a layer)."""
+    1.9 GB of float32 a layer).  On a mesh (a MeshGroups) every leaf is a
+    shard and ``specs`` the parameters' specs."""
     count = state["count"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, mesh, specs)
     clip = torch.clamp(torch.full_like(gnorm, tc.grad_clip)
                        / torch.clamp(gnorm, min=1e-9),
                        max=1.0) if tc.grad_clip > 0 else 1.0
@@ -140,13 +203,16 @@ def apply_adamw(params: Pytree, grads: Pytree, state: Pytree,
     # moments: one entry per parameter path (a q8 dict is one moment)
     flat_m = [_at(state["m"], p) for p in paths]
     flat_v = [_at(state["v"], p) for p in paths]
+    flat_s = [None] * len(paths) if mesh is None else \
+        [_at(specs, p) for p in paths]
     new_m, new_v = [], []
-    for p, g, m, v in zip(flat_p, flat_g, flat_m, flat_v):
+    for p, g, m, v, sp in zip(flat_p, flat_g, flat_m, flat_v, flat_s):
         if _is_q8(m):               # 8-bit moments (never on a scalar)
             m_f, v_f = _dq_any(m), _dq_any(v)
             _adamw_f32(p, g, m_f, v_f, clip, lr, bc1, bc2, tc, True)
-            new_m.append(_q8(m_f))
-            new_v.append(_q8_log(v_f))
+            row = _row_group(p, sp, mesh)
+            new_m.append(_q8(m_f, row))
+            new_v.append(_q8_log(v_f, row))
             continue
         # decoupled weight decay on every leaf but scalars
         for sl in ([(p, g, m, v)] if p.ndim < 3 else

@@ -7,6 +7,10 @@ only PyTorch:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
 import math
+import os
+import socket
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -715,3 +719,47 @@ def test_real_cuda_tensors_launch_under_the_dry_runs_tracker(dev):
         dict.fromkeys(kernels, 1)
     assert {n: k["calls"] for n, k in fake.kernels.items()} == \
         dict.fromkeys(kernels, 1)
+
+
+_RING_RANK = r"""
+import datetime, os, sys
+import torch, torch.distributed as dist
+from repro_torch.parallel import collectives as coll
+rank, port = int(sys.argv[1]), sys.argv[2]
+dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                        world_size=2, rank=rank,
+                        timeout=datetime.timedelta(seconds=120))
+dev = torch.device("cuda", 0)
+xs = [torch.randn((4096, 576), generator=torch.Generator().manual_seed(r))
+      .to(dev) for r in range(2)]
+got = coll.ring_all_reduce(xs[rank])
+assert got.is_cuda and coll.stages_through_host()
+# chunk c sums from rank c round the ring: x_{c+1} + x_c
+want = torch.cat([xs[(c + 1) % 2].chunk(2)[c] + xs[c].chunk(2)[c]
+                  for c in range(2)])
+assert torch.equal(got, want), (got - want).abs().max()
+dist.destroy_process_group()
+"""
+
+
+def test_ring_all_reduce_over_two_gloo_ranks_on_the_card(dev):
+    """The ring over two gloo ranks sharing the card: CUDA tensors staged
+    through pinned host memory, the sum bit for bit the ring's order."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    src = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "src")
+    env = dict(os.environ, PYTHONPATH=src)
+    procs = [subprocess.Popen([sys.executable, "-c", _RING_RANK, str(r),
+                               str(port)], env=env, stderr=subprocess.PIPE,
+                              text=True) for r in range(2)]
+    try:
+        errs = [p.communicate(timeout=180)[1] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, err in zip(procs, errs):
+        assert p.returncode == 0, err[-3000:]

@@ -126,8 +126,8 @@ def test_placements_and_constrain_off_mesh():
     x = torch.ones(3)
     assert tsharding.constrain(x, None, P("data")) is x
     assert tsharding.constrain(x, _Mesh(("data",), 1), P("data")) is x
-    with pytest.raises(NotImplementedError, match="A8"):
-        tsharding.constrain(x, _Mesh(("data",), 4), P("data"))
+    # on a larger mesh constrain slices or gathers a local shard
+    # (tests/test_torch_collectives.py runs it over four gloo ranks)
     assert repr(P("data", None)) == "PartitionSpec('data', None)"
 
 

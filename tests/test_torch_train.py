@@ -384,8 +384,20 @@ def test_unported_options_raise():
                                memory=MemoryPlan(policy="none")),
                      device="cpu")
     assert not tm.runtime.offloads
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        init_state(tm, TrainConfig(grad_compress="int8"))
+    # grad_compress="int8" no longer raises: it allocates the
+    # error-feedback residual, float32 zeros shaped as the parameters,
+    # as the reference's init_state does
+    state = init_state(tm, TrainConfig(grad_compress="int8"))
+    jstate = jinit_state(jbuild(JRunConfig(
+        model=_cfgs()[0], shape=JShapeConfig("t", 8, 1, "train"),
+        mesh=SINGLE, memory=JMemoryPlan(policy="none"))),
+        JTrainConfig(grad_compress="int8"))
+    got, paths = tree.flatten(state["ef_err"])
+    want, jpaths = tree.flatten(jstate["ef_err"])
+    assert paths == jpaths
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and tuple(g.shape) == w.shape
+        assert not g.any() and not np.asarray(w).any()
 
 
 @pytest.mark.parametrize("policy", ["none", "host"])
