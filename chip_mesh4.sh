@@ -2,7 +2,7 @@
 # The mesh on four cards over NCCL (ROADMAP A8b), from the repository root
 # of a host with four cards:
 #
-#     chiprun --chips 4 --timeout 1500 -- bash chip_mesh4.sh
+#     bash chip_mesh4.sh
 #
 # 1. chip_smoke.py's phase 19 with its four ranks on four cards over NCCL
 #    (the script itself runs them on one card over gloo): the same checks,
